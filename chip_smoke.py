@@ -1,0 +1,377 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``gpuschedule_tpu_torch``) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure (exit code 1, no result line):
+
+1. device — the card's name, and its name and power limit from nvidia-smi;
+2. build — nvcc builds ``ops/csrc/*.cu`` from this checkout;
+3. parity — each CUDA kernel (forward, dq, dk/dv) against its plain PyTorch
+   version on the same inputs: transformer-long's attention shape
+   (B=2, S=4096, H=8, D=32, bf16, causal) and ragged shapes (S=1000 f32,
+   causal and not; other head dims); the flash op against the dense oracle;
+   flash and dense transformer-long losses at init on a short sequence;
+4. kernel times — CUDA events at the transformer-long shape, beside the plain
+   versions, ``F.scaled_dot_product_attention`` (a yardstick the port never
+   calls) and the least time the card could take (``bound_ms``);
+5. flash train step — ``ShardedTrainer("transformer-long", batch_size=2,
+   seq_len=4096, flash_attn=True)``: 3 warm-up steps, ``time_steps(iters=5,
+   repeats=3)``, one last step; the loss must be finite and fall, and the
+   launch counters must show every kernel on the path (K1 >= 8, K2 >= 4,
+   K3 >= 4 per step: 4 layers, remat recomputes each forward);
+6. dense train step — transformer-large at b16 x S512, no kernel of ours;
+7. a ``{"train": ...}`` line, a ``{"kernels": [...]}`` line, and last the
+   ``{"ok": true, "device": {...}}`` line.
+
+Exits non-zero when CUDA is unavailable or the port cannot be imported.
+"""
+
+from __future__ import annotations
+
+import importlib
+import json
+import math
+import subprocess
+import sys
+import time
+
+# Published dense peaks of one H100 SXM (NVIDIA data sheet, 700 W).
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES_PER_S = 3.35e12
+
+FWD_TOL = 2e-2      # max abs error of the forward output (bench.py's bound)
+GRAD_TOL = 2e-2     # max abs error of a gradient over the plain version's max
+LSE_TOL = 1e-3      # max abs error of the f32 logsumexp rows
+LOSS_RTOL = 2e-3    # flash vs dense loss at init (the JAX suite's bound)
+
+SOURCE = "gpuschedule_tpu_torch/ops/csrc/flash_attention.cu"
+KERNELS = {
+    "flash_fwd": ("fwd_kernel", "gpuschedule_tpu/ops/flash_attention.py:98"),
+    "flash_bwd_dq": ("bwd_dq_kernel", "gpuschedule_tpu/ops/flash_attention.py:155"),
+    "flash_bwd_dkdv": ("bwd_dkdv_kernel", "gpuschedule_tpu/ops/flash_attention.py:202"),
+}
+MAIN_SHAPE = (2, 4096, 8, 32)  # transformer-long: d_model 256 / 8 heads, S = max_seq
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def check(ok: bool, msg: str) -> None:
+    if not ok:
+        raise SmokeFailure(msg)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def nvidia_smi_line() -> str:
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    check(res.returncode == 0, f"nvidia-smi failed: {res.stderr.strip()}")
+    return res.stdout.strip().splitlines()[0]
+
+
+def attention_cost(b, s, h, d, causal, esize, kernel):
+    """(flops, bytes) the kernel's function needs on these inputs: each
+    input read once, each output written once; causal counts the S(S+1)/2
+    (row, key) pairs that are not masked."""
+    pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+    n = b * s * h * d * esize
+    rows = b * h * s * 4
+    if kernel == "flash_fwd":      # QK^T, PV; reads q k v, writes o and lse
+        return 4 * d * pairs, 3 * n + n + rows
+    if kernel == "flash_bwd_dq":   # QK^T, dO V^T, ds K; reads q k v dO lse delta, writes dq
+        return 6 * d * pairs, 4 * n + 2 * rows + n
+    # QK^T, dO V^T, p^T dO, ds^T q; reads q k v dO lse delta, writes dk dv
+    return 8 * d * pairs, 4 * n + 2 * rows + 2 * n
+
+
+def bound(flops, nbytes, peak_flops):
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def profile_steps(torch, trainer, state, tokens, steps: int = 2) -> dict:
+    """Device time by kernel over ``steps`` train steps (``torch.profiler``):
+    per-step ms of the top kernels, their sum, and the busy share of the
+    profiled window's wall time (the profiler's own overhead lands in the
+    idle share; the caller adds the share of an unprofiled step).
+    A diagnostic: when the profiler sees no device activity it says so
+    instead of failing the run."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                state, _ = trainer.step(state, tokens)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        by_name: dict = {}
+        for evt in prof.events():
+            # device activity only: GPU-side user annotations (the optimizer's
+            # range) overlap the kernels they contain
+            if evt.device_type == DeviceType.CUDA and not getattr(evt, "is_user_annotation", False):
+                by_name[evt.name] = by_name.get(evt.name, 0.0) + evt.time_range.elapsed_us() / 1e3
+    except Exception as e:  # noqa: BLE001 — a diagnostic: record why, keep the smoke
+        return {"error": f"{type(e).__name__}: {e}"}
+    if not by_name:
+        return {"error": "the profiler recorded no device activity"}
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    return {
+        "steps": steps, "wall_ms_per_step": wall_ms / steps,
+        "device_ms_per_step": busy / steps, "busy_share": busy / wall_ms,
+        "top": [{"kernel": n[:90], "ms_per_step": t / steps, "share": t / busy} for n, t in top],
+    }
+
+
+def run() -> dict:
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SmokeFailure("torch.cuda.is_available() is false: no card to drive")
+    try:
+        import torch.nn.functional as F
+
+        from gpuschedule_tpu_torch.ops import _build, dense_attention
+        from gpuschedule_tpu_torch.parallel import ShardedTrainer
+        from gpuschedule_tpu_torch.profiler import time_callable, time_steps
+
+        # the module, not the op of the same name that ops/__init__ exports
+        fa = importlib.import_module("gpuschedule_tpu_torch.ops.flash_attention")
+    except ImportError as e:
+        raise SmokeFailure(f"cannot import the port: {e}") from None
+
+    # the plain versions' f32 products are the reference: keep them f32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # ---------------------------------------------------------------- 1 --
+    kind = torch.cuda.get_device_name(0)
+    smi = nvidia_smi_line()
+    log(f"device: {kind} (torch {torch.__version__}, CUDA {torch.version.cuda})")
+    log(smi)
+    dev = torch.device("cuda")
+
+    # ---------------------------------------------------------------- 2 --
+    t0 = time.perf_counter()
+    fa._kernels()
+    build_s = time.perf_counter() - t0
+    log(f"build: {build_s:.1f} s")
+    for line in _build.build_log("flash_attention").splitlines():
+        if "Compiling entry" in line or "registers" in line or "spill" in line:
+            print(f"ptxas: {line.strip()}", file=sys.stderr)
+
+    # ---------------------------------------------------------------- 3 --
+    errs = {name: 0.0 for name in KERNELS}
+    parity = [
+        (MAIN_SHAPE, torch.bfloat16, True),
+        ((2, 1000, 4, 64), torch.float32, True),
+        ((2, 1000, 4, 64), torch.float32, False),
+        ((1, 333, 2, 96), torch.bfloat16, True),
+        ((1, 200, 3, 128), torch.float32, False),
+        ((1, 77, 2, 32), torch.float32, True),
+    ]
+    for i, (shape, dtype, causal) in enumerate(parity):
+        gen = torch.Generator(device=dev).manual_seed(100 + i)
+        q, k, v, g = (torch.randn(shape, generator=gen, device=dev).to(dtype) for _ in range(4))
+        out, lse = fa.flash_fwd(q, k, v, causal=causal)
+        out_p, lse_p = fa.flash_fwd_plain(q, k, v, causal)
+        torch.cuda.synchronize()
+        e_out = (out.float() - out_p.float()).abs().max().item()
+        e_lse = (lse - lse_p).abs().max().item()
+        delta = fa.attention_delta(out_p, g)
+        dq = fa.flash_bwd_dq(q, k, v, g, lse_p, delta, causal=causal)
+        dk, dv = fa.flash_bwd_dkdv(q, k, v, g, lse_p, delta, causal=causal)
+        dq_p = fa.flash_bwd_dq_plain(q, k, v, g, lse_p, delta, causal)
+        dk_p, dv_p = fa.flash_bwd_dkdv_plain(q, k, v, g, lse_p, delta, causal)
+        torch.cuda.synchronize()
+
+        def rel(a, b):
+            diff = (a.float() - b.float()).abs().max().item()
+            return diff, diff / max(b.float().abs().max().item(), 1e-6)
+
+        (a_dq, r_dq), (a_dk, r_dk), (a_dv, r_dv) = rel(dq, dq_p), rel(dk, dk_p), rel(dv, dv_p)
+        log(f"parity {shape} {dtype} causal={causal}: out {e_out:.3e} lse {e_lse:.3e} "
+            f"dq {a_dq:.3e} ({r_dq:.2e} rel) dk {a_dk:.3e} ({r_dk:.2e}) dv {a_dv:.3e} ({r_dv:.2e})")
+        check(e_out < FWD_TOL and e_lse < LSE_TOL, f"forward kernel disagrees at {shape}")
+        check(max(r_dq, r_dk, r_dv) < GRAD_TOL, f"backward kernels disagree at {shape}")
+        for name, e in (("flash_fwd", e_out), ("flash_bwd_dq", a_dq),
+                        ("flash_bwd_dkdv", max(a_dk, a_dv))):
+            errs[name] = max(errs[name], e)
+
+    # the whole op (autograd through the three kernels) against the dense oracle
+    gen = torch.Generator(device=dev).manual_seed(7)
+    q, k, v = (torch.randn((2, 1000, 4, 64), generator=gen, device=dev).requires_grad_(True)
+               for _ in range(3))
+    out = fa.flash_attention(q, k, v, causal=True)
+    grads = torch.autograd.grad((out ** 2).sum(), (q, k, v))
+    ref = dense_attention(q, k, v, causal=True)
+    grads_r = torch.autograd.grad((ref ** 2).sum(), (q, k, v))
+    e_op = (out - ref).abs().max().item()
+    r_op = max((a - b).abs().max().item() / b.abs().max().item() for a, b in zip(grads, grads_r))
+    log(f"op vs dense oracle (2, 1000, 4, 64) f32 causal: out {e_op:.3e} grads {r_op:.3e} rel")
+    check(e_op < FWD_TOL and r_op < GRAD_TOL, "flash op disagrees with the dense oracle")
+
+    # model level: flash and dense losses of the same init agree
+    losses = {}
+    for flash in (True, False):
+        tr = ShardedTrainer("transformer-long", batch_size=2, seq_len=256, flash_attn=flash)
+        st = tr.init(seed=0)
+        tok = tr.make_batch(seed=0)
+        with torch.no_grad():
+            losses[flash] = tr.loss(st.model(tok), tok).item()
+        del st
+    rel_loss = abs(losses[True] - losses[False]) / abs(losses[False])
+    log(f"transformer-long init loss at S=256: flash {losses[True]:.6f} dense "
+        f"{losses[False]:.6f} (rel {rel_loss:.2e})")
+    check(math.isfinite(losses[True]) and rel_loss < LOSS_RTOL,
+          "flash and dense model losses disagree at init")
+
+    # ---------------------------------------------------------------- 4 --
+    b, s, h, d = MAIN_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(1)
+    q, k, v, g = (torch.randn(MAIN_SHAPE, generator=gen, device=dev).to(torch.bfloat16)
+                  for _ in range(4))
+    out, lse = fa.flash_fwd(q, k, v, causal=True)
+    delta = fa.attention_delta(out, g)
+    ms = lambda fn, iters=20: time_callable(fn, iters=iters, warmup=3, device=dev) * 1e3  # noqa: E731
+    times = {
+        "flash_fwd": (ms(lambda: fa.flash_fwd(q, k, v, causal=True)),
+                      ms(lambda: fa.flash_fwd_plain(q, k, v, True), 3)),
+        "flash_bwd_dq": (ms(lambda: fa.flash_bwd_dq(q, k, v, g, lse, delta, causal=True)),
+                         ms(lambda: fa.flash_bwd_dq_plain(q, k, v, g, lse, delta, True), 3)),
+        "flash_bwd_dkdv": (ms(lambda: fa.flash_bwd_dkdv(q, k, v, g, lse, delta, causal=True)),
+                           ms(lambda: fa.flash_bwd_dkdv_plain(q, k, v, g, lse, delta, True), 3)),
+    }
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+    sdpa_fwd_ms = ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
+    o_sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    gt = g.transpose(1, 2)
+    sdpa_bwd_ms = ms(lambda: torch.autograd.grad(o_sdpa, (qt, kt, vt), gt, retain_graph=True))
+    library = {"flash_fwd": sdpa_fwd_ms, "flash_bwd_dq": None, "flash_bwd_dkdv": None}
+    bounds = {}
+    for name in KERNELS:
+        flops, nbytes = attention_cost(b, s, h, d, True, 2, name)
+        bounds[name] = bound(flops, nbytes, PEAK_BF16_FLOPS)
+        k_ms, p_ms = times[name]
+        log(f"time {name} {MAIN_SHAPE} bf16 causal: {k_ms:.4f} ms (plain {p_ms:.4f} ms, "
+            f"bound {bounds[name][0]:.4f} ms by {bounds[name][1]}, "
+            f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB)")
+    bwd_ms = times["flash_bwd_dq"][0] + times["flash_bwd_dkdv"][0]
+    bwd_bound = bounds["flash_bwd_dq"][0] + bounds["flash_bwd_dkdv"][0]
+    log(f"time sdpa forward {sdpa_fwd_ms:.4f} ms; K2+K3 {bwd_ms:.4f} ms "
+        f"(plain {times['flash_bwd_dq'][1] + times['flash_bwd_dkdv'][1]:.4f} ms, "
+        f"bound {bwd_bound:.4f} ms) vs sdpa backward {sdpa_bwd_ms:.4f} ms")
+    del q, k, v, g, qt, kt, vt, o_sdpa, out, lse, delta
+
+    # ---------------------------------------------------------------- 5 --
+    trainer = ShardedTrainer("transformer-long", batch_size=2, seq_len=4096, flash_attn=True)
+    state = trainer.init(seed=0)
+    tokens = trainer.make_batch(seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()                           # the main path starts here
+    losses = []
+    for _ in range(3):
+        state, loss = trainer.step(state, tokens)
+        losses.append(loss.item())
+    step_s, state = time_steps(trainer.step, state, tokens, iters=5, repeats=3)
+    state, loss = trainer.step(state, tokens)
+    losses.append(loss.item())
+    launches = dict(fa.LAUNCHES)                  # ... and ends here
+    flash_prof = profile_steps(torch, trainer, state, tokens)
+    if "device_ms_per_step" in flash_prof:  # busy share of an unprofiled step
+        flash_prof["busy_share_of_step"] = flash_prof["device_ms_per_step"] / (step_s * 1e3)
+    log(f"flash step profile: {json.dumps(flash_prof)}")
+    n_steps = 3 + 5 * 3 + 1
+    flash_tps = 2 * 4096 / step_s
+    cfg = trainer.cfg
+    flash_tflops = cfg.flops_per_token_attn(4096) * 2 * 4096 / step_s / 1e12
+    flash_mem = torch.cuda.max_memory_allocated() / 2**30
+    log(f"flash train step transformer-long b2 S4096: {step_s * 1e3:.3f} ms/step, "
+        f"{flash_tps:.1f} tokens/s, {flash_tflops:.2f} TFLOP/s attention-aware "
+        f"(MFU {flash_tflops * 1e12 / PEAK_BF16_FLOPS:.4f} of 989 TF/s), peak "
+        f"{flash_mem:.2f} GiB, losses {losses}, launches {launches} over {n_steps} steps")
+    check(all(math.isfinite(x) for x in losses), f"non-finite flash train loss: {losses}")
+    check(losses[-1] < losses[0], f"flash train loss did not fall: {losses}")
+    per_step = {name: launches[name] / n_steps for name in KERNELS}
+    check(per_step["flash_fwd"] >= 8 and per_step["flash_bwd_dq"] >= 4
+          and per_step["flash_bwd_dkdv"] >= 4,
+          f"the train step did not run every kernel: {per_step} per step")
+    del state, trainer, tokens
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------------- 6 --
+    before = dict(fa.LAUNCHES)
+    trainer = ShardedTrainer("transformer-large", batch_size=16, seq_len=512)
+    state = trainer.init(seed=0)
+    tokens = trainer.make_batch(seed=0)
+    dense_losses = []
+    for _ in range(3):
+        state, loss = trainer.step(state, tokens)
+        dense_losses.append(loss.item())
+    dense_s, state = time_steps(trainer.step, state, tokens, iters=10, repeats=3)
+    dense_tps = 16 * 512 / dense_s
+    dense_prof = profile_steps(torch, trainer, state, tokens)
+    if "device_ms_per_step" in dense_prof:
+        dense_prof["busy_share_of_step"] = dense_prof["device_ms_per_step"] / (dense_s * 1e3)
+    log(f"dense step profile: {json.dumps(dense_prof)}")
+    dense_mfu = trainer.cfg.flops_per_token() * 16 * 512 / dense_s / PEAK_BF16_FLOPS
+    log(f"dense train step transformer-large b16 S512: {dense_s * 1e3:.3f} ms/step, "
+        f"{dense_tps:.1f} tokens/s, MFU {dense_mfu:.4f} of 989 TF/s (6N FLOPs) on "
+        f"{smi}; losses {dense_losses}")
+    check(all(math.isfinite(x) for x in dense_losses), "non-finite dense train loss")
+    check(dict(fa.LAUNCHES) == before, "the dense path launched a flash kernel")
+    del state, trainer, tokens
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------------- 7 --
+    train = {
+        "card": smi, "build_s": build_s,
+        "flash": {"model": "transformer-long", "batch": 2, "seq": 4096,
+                  "step_ms": step_s * 1e3, "tokens_per_s": flash_tps,
+                  "tflops_attn_aware": flash_tflops, "peak_gib": flash_mem,
+                  "losses": losses, "steps": n_steps, "launches": launches,
+                  "profile": flash_prof},
+        "dense": {"model": "transformer-large", "batch": 16, "seq": 512,
+                  "step_ms": dense_s * 1e3, "tokens_per_s": dense_tps, "mfu": dense_mfu,
+                  "profile": dense_prof},
+        "backward": {"ms": bwd_ms, "bound_ms": bwd_bound,
+                     "plain_ms": times["flash_bwd_dq"][1] + times["flash_bwd_dkdv"][1],
+                     "library_ms": sdpa_bwd_ms},
+    }
+    kernels = [
+        {"name": cname, "route": "cuda", "source": SOURCE, "replaces": replaces,
+         "launches": launches[name], "max_abs_err": errs[name],
+         "ms": times[name][0], "plain_ms": times[name][1],
+         "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+         "library_ms": library[name]}
+        for name, (cname, replaces) in KERNELS.items()
+    ]
+    print(json.dumps({"train": train}))
+    print(json.dumps({"kernels": kernels}))
+    return {"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                   "count": torch.cuda.device_count()}}
+
+
+def main() -> int:
+    try:
+        result = run()
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
+        return 1
+    print(json.dumps(result), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

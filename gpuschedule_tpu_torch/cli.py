@@ -1,0 +1,106 @@
+"""Command line: ``python -m gpuschedule_tpu_torch train ...``.
+
+Counterpart of the JAX package's ``train`` subcommand on one device: build
+the trainer, feed it :func:`synthetic_lm_batches`, print one JSON summary
+line with the keys this port can fill (``model``, ``steps``,
+``first_loss``, ``last_loss``, ``tokens_per_s``, plus ``device``).
+``--data``, ``--ckpt`` and ``--restore`` are not ported yet (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from typing import Optional, Sequence
+
+import torch
+
+
+def cmd_train(args) -> int:
+    from gpuschedule_tpu_torch.data import synthetic_lm_batches
+    from gpuschedule_tpu_torch.parallel import ShardedTrainer
+
+    if args.steps < 1:
+        raise SystemExit("--steps must be >= 1")
+    try:
+        trainer = ShardedTrainer(
+            args.model,
+            batch_size=args.batch_size,
+            seq_len=args.seq_len,
+            learning_rate=args.lr,
+            flash_attn=args.flash_attn,
+            warmup_steps=args.warmup_steps,
+            decay_steps=args.decay_steps,
+            grad_clip=args.grad_clip,
+            device=args.device,
+        )
+    except (ValueError, NotImplementedError, RuntimeError) as e:
+        raise SystemExit(str(e))
+    state = trainer.init(seed=args.seed)
+    batches = synthetic_lm_batches(
+        batch_size=trainer.batch_size, seq_len=args.seq_len,
+        vocab=trainer.cfg.vocab, num_batches=args.steps, seed=args.seed,
+    )
+    first_loss = None
+    t0 = None
+    n = 0
+    loss = None
+    for tokens in batches:
+        state, loss = trainer.step(state, trainer.to_device(tokens))
+        n += 1
+        if first_loss is None:
+            # the readback fences step 1 (kernel build, allocator warm-up);
+            # the timed window starts here so tokens_per_s is warm throughput
+            first_loss = float(loss)
+            t0 = time.perf_counter()
+    last_loss = float(loss)
+    elapsed = time.perf_counter() - t0
+    tokens_per_s = (
+        (n - 1) * trainer.batch_size * args.seq_len / elapsed
+        if n > 1 and elapsed > 0 else None
+    )
+    dev = trainer.device
+    print(json.dumps({
+        "model": args.model,
+        "steps": n,
+        "first_loss": first_loss,
+        "last_loss": last_loss,
+        "tokens_per_s": tokens_per_s,
+        "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+    }, sort_keys=True))
+    return 0
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="gpuschedule_tpu_torch")
+    sub = p.add_subparsers(dest="cmd", required=True)
+    tr = sub.add_parser("train", help="train a model on one device")
+    tr.add_argument("--model", required=True)
+    tr.add_argument("--steps", type=int, default=10)
+    tr.add_argument("--batch-size", type=int, default=8)
+    tr.add_argument("--seq-len", type=int, default=128)
+    tr.add_argument("--lr", type=float, default=1e-3)
+    tr.add_argument("--warmup-steps", type=int, default=0,
+                    help="linear LR warmup steps (0 = none)")
+    tr.add_argument("--decay-steps", type=int, default=None,
+                    help="cosine-decay LR to zero over this many post-warmup steps")
+    tr.add_argument("--grad-clip", type=float, default=None,
+                    help="global-norm gradient clipping threshold")
+    tr.add_argument("--seed", type=int, default=0)
+    tr.add_argument("--flash-attn", action="store_true",
+                    help="the CUDA flash-attention kernels as the attention core")
+    tr.add_argument("--device", default=None,
+                    help="'cpu' for the plain PyTorch versions; default: the card")
+    tr.set_defaults(fn=cmd_train)
+    return p
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    args = build_parser().parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

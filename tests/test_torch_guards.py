@@ -1,0 +1,123 @@
+"""Guards of the port: the device rule, unported options, import isolation."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from gpuschedule_tpu_torch import resolve_device
+from gpuschedule_tpu_torch.cli import main
+from gpuschedule_tpu_torch.models import build_model
+from gpuschedule_tpu_torch.parallel import ShardedTrainer
+from gpuschedule_tpu_torch.profiler import measure_step_time
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "gpuschedule_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "gpuschedule_tpu"}
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_resolve_device_raises_without_cuda(no_cuda):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_entry_points_default_to_the_card(no_cuda):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ShardedTrainer("transformer-tiny")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        measure_step_time("transformer-tiny")
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        main(["train", "--model", "transformer-tiny", "--steps", "1"])
+
+
+def test_unported_options_raise():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ShardedTrainer("transformer-tiny", dp=2, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ShardedTrainer("transformer-tiny", sp=2, tp=2, device="cpu")
+    for name in ("moe-tiny", "resnet-tiny"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            build_model(name)
+    with pytest.raises(ValueError, match="unknown model"):
+        build_model("no-such-model")
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_nothing_of_jax(path):
+    """Every import statement of the port and of chip_smoke.py, at any
+    depth, names neither JAX nor the JAX package."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in FORBIDDEN, f"{path.name}:{node.lineno} imports {name}"
+
+
+def test_port_imports_with_jax_blocked():
+    """Import every port module in a fresh interpreter where importing JAX
+    or the JAX package fails."""
+    mods = [
+        ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
+        for p in PORT_FILES if p.name not in ("chip_smoke.py", "__main__.py")
+    ]
+    code = (
+        "import sys\n"
+        f"for m in {sorted(FORBIDDEN)!r}: sys.modules[m] = None\n"
+        "import importlib\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "import chip_smoke\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_kernel_input_checks():
+    """What the CUDA wrappers check before a launch (the checks themselves
+    read no device, so they run here on CPU tensors)."""
+    from gpuschedule_tpu_torch.ops.flash_attention import _check_cuda, _check_cuda_block
+
+    q = torch.zeros(1, 8, 2, 32, dtype=torch.bfloat16)
+    rows = torch.zeros(2, 8)
+    _check_cuda((q, q, q, q), (rows, rows))
+    with pytest.raises(TypeError, match="share one dtype"):
+        _check_cuda((q, q.float(), q))
+    with pytest.raises(TypeError, match="not supported"):
+        _check_cuda((q.half(), q.half(), q.half()))
+    with pytest.raises(ValueError, match="contiguous"):
+        _check_cuda((q, q.transpose(1, 2), q))
+    with pytest.raises(ValueError, match="contiguous"):
+        _check_cuda((q, q, q), (rows.t(),))
+    _check_cuda_block(None)
+    _check_cuda_block(64)
+    with pytest.raises(ValueError, match="64x64"):
+        _check_cuda_block(128)
+
+
+def test_failed_kernel_build_raises(monkeypatch, tmp_path):
+    """A compiler that fails makes the build raise with its output; no
+    library is left behind to load.  The stand-in compiler is the Python
+    interpreter, which exits non-zero on nvcc's flags."""
+    from gpuschedule_tpu_torch.ops import _build
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "nvcc_path", lambda: sys.executable)
+    with pytest.raises(RuntimeError, match="CUDA kernel build failed"):
+        _build.build_all()
+    assert not list(tmp_path.glob("*.so"))
