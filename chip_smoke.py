@@ -21,8 +21,22 @@ Phases, each fatal on failure (exit code 1, no result line):
    launch counters must show every kernel on the path (K1 >= 8, K2 >= 4,
    K3 >= 4 per step: 4 layers, remat recomputes each forward);
 6. dense train step — transformer-large at b16 x S512, no kernel of ours;
-7. a ``{"train": ...}`` line, a ``{"kernels": [...]}`` line, and last the
-   ``{"ok": true, "device": {...}}`` line.
+7. probe parity — K5a (copy) and K5b (rows 0-7 of each tile's xᵀx) in both
+   launch forms against their plain versions at n = 64, 4096 and 37 tiles
+   of (8, 128) bf16: K5a exactly, K5b within one bf16 ulp;
+8. probe sweeps — the four sweeps of the overhead probe
+   (``gpuschedule_tpu_torch.tools.overhead_probe``), one JSON line per
+   point and per slope; the launch counters must show both kernels; then
+   the kernels at n = 4096 in both forms beside their plain versions,
+   ``Tensor.copy_`` and ``torch.bmm`` (yardsticks the port never calls) and
+   the bound;
+9. profile — ``profile_model("transformer-large", batch_size=16,
+   seq_len=512)`` over ks 1-64 into a ``CurveCache``, which must reload
+   with all seven ks, finite non-negative theta and a measured k = 1 point
+   within 15% of phase 6's step; then ``capture_trace`` of 2 steps, whose
+   file must exist; a ``{"profile": ...}`` line;
+10. a ``{"train": ...}`` line, a ``{"kernels": [...]}`` line (all five
+   kernels), and last the ``{"ok": true, "device": {...}}`` line.
 
 Exits non-zero when CUDA is unavailable or the port cannot be imported.
 """
@@ -32,8 +46,10 @@ from __future__ import annotations
 import importlib
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 # Published dense peaks of one H100 SXM (NVIDIA data sheet, 700 W).
@@ -52,6 +68,15 @@ KERNELS = {
     "flash_bwd_dkdv": ("bwd_dkdv_kernel", "gpuschedule_tpu/ops/flash_attention.py:202"),
 }
 MAIN_SHAPE = (2, 4096, 8, 32)  # transformer-long: d_model 256 / 8 heads, S = max_seq
+
+PROBE_SOURCE = "gpuschedule_tpu_torch/ops/csrc/overhead_probe.cu"
+PROBE_KERNELS = {
+    "probe_copy": ("probe_copy_kernel", "tools/overhead_probe.py:54"),
+    "probe_matmul": ("probe_xtx_kernel", "tools/overhead_probe.py:58"),
+}
+PROBE_N, PROBE_BLOCK = 4096, 128  # the probe's largest grid, its tile width
+PROFILE_KS = (1, 2, 4, 8, 16, 32, 64)
+PROFILE_RTOL = 0.15  # profiled k = 1 step vs phase 6's step: same model, batch, S
 
 
 class SmokeFailure(Exception):
@@ -96,32 +121,44 @@ def bound(flops, nbytes, peak_flops):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def probe_cost(n, block, kernel):
+    """(flops, bytes) of a probe kernel's function over n (8, block) bf16
+    tiles: x read once, out written once; K5b forms 8 x block outputs of 8
+    products each per tile."""
+    nbytes = 2 * (n * 8 * block * 2)
+    return (0 if kernel == "probe_copy" else 2 * 8 * 8 * block * n), nbytes
+
+
+def bf16_ulps(torch, a, b):
+    """Largest |a - b| over the bf16 spacing at max(|a|, |b|), elementwise."""
+    a, b = a.float(), b.float()
+    _, e = torch.frexp(torch.maximum(a.abs(), b.abs()))
+    return ((a - b).abs() / torch.ldexp(torch.ones_like(a), e - 8)).max().item()
+
+
 def profile_steps(torch, trainer, state, tokens, steps: int = 2) -> dict:
     """Device time by kernel over ``steps`` train steps (``torch.profiler``):
     per-step ms of the top kernels, their sum, and the busy share of the
     profiled window's wall time (the profiler's own overhead lands in the
     idle share; the caller adds the share of an unprofiled step).
-    A diagnostic: when the profiler sees no device activity it says so
-    instead of failing the run."""
+    A failing step fails the run; only a profiler that saw no device
+    activity is recorded as a diagnostic instead."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(steps):
-                state, _ = trainer.step(state, tokens)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        by_name: dict = {}
-        for evt in prof.events():
-            # device activity only: GPU-side user annotations (the optimizer's
-            # range) overlap the kernels they contain
-            if evt.device_type == DeviceType.CUDA and not getattr(evt, "is_user_annotation", False):
-                by_name[evt.name] = by_name.get(evt.name, 0.0) + evt.time_range.elapsed_us() / 1e3
-    except Exception as e:  # noqa: BLE001 — a diagnostic: record why, keep the smoke
-        return {"error": f"{type(e).__name__}: {e}"}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, _ = trainer.step(state, tokens)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name: dict = {}
+    for evt in prof.events():
+        # device activity only: GPU-side user annotations (the optimizer's
+        # range) overlap the kernels they contain
+        if evt.device_type == DeviceType.CUDA and not getattr(evt, "is_user_annotation", False):
+            by_name[evt.name] = by_name.get(evt.name, 0.0) + evt.time_range.elapsed_us() / 1e3
     if not by_name:
         return {"error": "the profiler recorded no device activity"}
     busy = sum(by_name.values())
@@ -133,6 +170,115 @@ def profile_steps(torch, trainer, state, tokens, steps: int = 2) -> dict:
     }
 
 
+def probe_parity(torch, dev, sizes) -> dict:
+    """Phase 7: both probe kernels in both launch forms against their plain
+    versions on seeded (n * 8, 128) bf16 inputs; returns the largest abs
+    error of each."""
+    from gpuschedule_tpu_torch.ops import overhead_probe as op
+
+    errs = {name: 0.0 for name in PROBE_KERNELS}
+    for i, n in enumerate(sizes):
+        gen = torch.Generator(device=dev).manual_seed(200 + i)
+        x = torch.randn((n * 8, PROBE_BLOCK), generator=gen, device=dev).to(torch.bfloat16)
+        ref_c, ref_m = op.probe_copy_plain(x), op.probe_matmul_plain(x)
+        for parallel in (False, True):
+            c, m = op.probe_copy(x, parallel=parallel), op.probe_matmul(x, parallel=parallel)
+            torch.cuda.synchronize()
+            e_c = (c.float() - ref_c.float()).abs().max().item()
+            e_m = (m.float() - ref_m.float()).abs().max().item()
+            ulps = bf16_ulps(torch, m, ref_m)
+            log(f"probe parity n={n} parallel={parallel}: copy {e_c:.3e} "
+                f"(equal {torch.equal(c, ref_c)}) xtx {e_m:.3e} ({ulps:.2f} bf16 ulp)")
+            check(torch.equal(c, ref_c), f"the copy kernel disagrees at n={n} parallel={parallel}")
+            check(ulps <= 1.0, f"the xtx kernel is {ulps} bf16 ulp off at n={n} parallel={parallel}")
+            errs["probe_copy"] = max(errs["probe_copy"], e_c)
+            errs["probe_matmul"] = max(errs["probe_matmul"], e_m)
+    return errs
+
+
+def probe_sweeps(torch, dev, n, ms):
+    """Phase 8: the overhead probe's four sweeps (its main path, counted),
+    then each kernel at n tiles in both forms beside its plain version, the
+    library call of the same function and the bound.  Returns (launches,
+    times, bounds) by kernel."""
+    from gpuschedule_tpu_torch.ops import overhead_probe as op
+    from gpuschedule_tpu_torch.tools import overhead_probe as probe_tool
+
+    op.reset_launches()                           # the probe's main path starts here
+    for kernel, name, parallel in probe_tool.SWEEPS:
+        probe_tool.sweep(kernel, name, parallel, device=dev)
+    launches = dict(op.LAUNCHES)                  # ... and ends here
+    log(f"probe sweep launches: {launches}")
+    check(all(launches[name] > 0 for name in PROBE_KERNELS),
+          f"the probe sweeps did not run every kernel: {launches}")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((n * 8, PROBE_BLOCK), generator=gen, device=dev).to(torch.bfloat16)
+    xt, out = x.view(n, 8, PROBE_BLOCK), torch.empty_like(x)
+    wrappers = {"probe_copy": (op.probe_copy, op.probe_copy_plain, lambda: out.copy_(x)),
+                "probe_matmul": (op.probe_matmul, op.probe_matmul_plain,
+                                 lambda: torch.bmm(xt[:, :, :8].transpose(1, 2), xt))}
+    times, bounds = {}, {}
+    for name, (kernel, plain, library) in wrappers.items():
+        times[name] = {
+            "ms": ms(lambda: kernel(x, parallel=True)),
+            "ms_sequential": ms(lambda: kernel(x, parallel=False)),
+            "plain_ms": ms(lambda: plain(x)), "library_ms": ms(library),
+        }
+        flops, nbytes = probe_cost(n, PROBE_BLOCK, name)
+        bounds[name] = bound(flops, nbytes, PEAK_BF16_FLOPS)
+        t = times[name]
+        log(f"time {name} n={n} block={PROBE_BLOCK} bf16: {t['ms']:.5f} ms parallel, "
+            f"{t['ms_sequential']:.5f} ms sequential (plain {t['plain_ms']:.5f} ms, "
+            f"library {t['library_ms']:.5f} ms, bound {bounds[name][0]:.5f} ms by "
+            f"{bounds[name][1]}, {flops / 1e6:.1f} MFLOP, {nbytes / 1e6:.2f} MB)")
+    return launches, times, bounds
+
+
+def profile_phase(torch, smi, dense_s, model="transformer-large", batch=16, seq=512,
+                  device=None) -> dict:
+    """Phase 9: the profile path.  ``profile_model`` fits ``model``'s curve
+    into a fresh ``CurveCache``, which must reload with every k, finite
+    non-negative theta and a measured k = 1 step within PROFILE_RTOL of
+    ``dense_s`` (the same model, batch and sequence length timed by phase
+    6); then ``capture_trace`` of 2 steps must write its file."""
+    from gpuschedule_tpu_torch.profiler import CurveCache, capture_trace, profile_model
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cache_path = os.path.join(tmp, "curves.json")
+        t0 = time.perf_counter()
+        curve = profile_model(model, batch_size=batch, seq_len=seq, ks=PROFILE_KS,
+                              cache=CurveCache(cache_path), device=device)
+        profile_s = time.perf_counter() - t0
+        reloaded = CurveCache(cache_path).get(model)
+        with open(cache_path) as f:
+            entry = json.load(f)[model]
+        check(reloaded is not None and reloaded.theta == curve.theta,
+              "the curve cache does not reload the fitted curve")
+        check(all(math.isfinite(t) and t >= 0 for t in curve.theta),
+              f"theta is not finite and non-negative: {curve.theta}")
+        check(sorted(int(k) for k in entry["points"]) == list(PROFILE_KS),
+              f"the cache lacks ks: {sorted(entry['points'])}")
+        measured_s = entry["points"]["1"]
+        rel = abs(measured_s - dense_s) / dense_s
+        check(rel <= PROFILE_RTOL, f"profiled k=1 step {measured_s * 1e3:.3f} ms is {rel:.1%} "
+                                   f"off phase 6's {dense_s * 1e3:.3f} ms")
+        t0 = time.perf_counter()
+        trace = capture_trace(model, os.path.join(tmp, "trace"), batch_size=batch,
+                              seq_len=seq, steps=2, device=device)
+        trace_s = time.perf_counter() - t0
+        check(os.path.isfile(trace) and os.path.getsize(trace) > 0, f"no trace at {trace}")
+        with open(trace) as f:
+            events = json.load(f).get("traceEvents", [])
+        return {
+            "model": model, "batch": batch, "seq": seq, "card": smi,
+            "theta": list(curve.theta), "source": entry["source"], "points": entry["points"],
+            "multislice": entry.get("multislice"), "measured_ms": measured_s * 1e3,
+            "dense_step_ms": dense_s * 1e3, "rel_to_dense": rel, "profile_s": profile_s,
+            "trace_s": trace_s, "trace_bytes": os.path.getsize(trace),
+            "trace_kernel_events": sum(e.get("cat") == "kernel" for e in events),
+        }
+
+
 def run() -> dict:
     import torch
 
@@ -142,6 +288,7 @@ def run() -> dict:
         import torch.nn.functional as F
 
         from gpuschedule_tpu_torch.ops import _build, dense_attention
+        from gpuschedule_tpu_torch.ops import overhead_probe as op
         from gpuschedule_tpu_torch.parallel import ShardedTrainer
         from gpuschedule_tpu_torch.profiler import time_callable, time_steps
 
@@ -163,12 +310,14 @@ def run() -> dict:
 
     # ---------------------------------------------------------------- 2 --
     t0 = time.perf_counter()
-    fa._kernels()
+    fa._kernels()  # builds every csrc/*.cu, one nvcc each, in parallel
+    op._kernels()
     build_s = time.perf_counter() - t0
     log(f"build: {build_s:.1f} s")
-    for line in _build.build_log("flash_attention").splitlines():
-        if "Compiling entry" in line or "registers" in line or "spill" in line:
-            print(f"ptxas: {line.strip()}", file=sys.stderr)
+    for stem in ("flash_attention", "overhead_probe"):
+        for line in _build.build_log(stem).splitlines():
+            if "Compiling entry" in line or "registers" in line or "spill" in line:
+                print(f"ptxas: {line.strip()}", file=sys.stderr)
 
     # ---------------------------------------------------------------- 3 --
     errs = {name: 0.0 for name in KERNELS}
@@ -334,7 +483,13 @@ def run() -> dict:
     del state, trainer, tokens
     torch.cuda.empty_cache()
 
-    # ---------------------------------------------------------------- 7 --
+    # ------------------------------------------------------------ 7 - 9 --
+    probe_errs = probe_parity(torch, dev, (64, PROBE_N, 37))
+    probe_launches, probe_times, probe_bounds = probe_sweeps(torch, dev, PROBE_N, ms)
+    profile = profile_phase(torch, smi, dense_s)
+    print(json.dumps({"profile": profile}))
+
+    # --------------------------------------------------------------- 10 --
     train = {
         "card": smi, "build_s": build_s,
         "flash": {"model": "transformer-long", "batch": 2, "seq": 4096,
@@ -356,6 +511,12 @@ def run() -> dict:
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
          "library_ms": library[name]}
         for name, (cname, replaces) in KERNELS.items()
+    ] + [
+        {"name": cname, "route": "cuda", "source": PROBE_SOURCE, "replaces": replaces,
+         "launches": probe_launches[name], "max_abs_err": probe_errs[name],
+         **probe_times[name], "bound_ms": probe_bounds[name][0],
+         "bound_by": probe_bounds[name][1]}
+        for name, (cname, replaces) in PROBE_KERNELS.items()
     ]
     print(json.dumps({"train": train}))
     print(json.dumps({"kernels": kernels}))

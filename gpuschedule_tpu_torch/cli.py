@@ -1,10 +1,17 @@
-"""Command line: ``python -m gpuschedule_tpu_torch train ...``.
+"""Command line: ``python -m gpuschedule_tpu_torch {train,profile} ...``.
 
-Counterpart of the JAX package's ``train`` subcommand on one device: build
-the trainer, feed it :func:`synthetic_lm_batches`, print one JSON summary
-line with the keys this port can fill (``model``, ``steps``,
-``first_loss``, ``last_loss``, ``tokens_per_s``, plus ``device``).
-``--data``, ``--ckpt`` and ``--restore`` are not ported yet (ROADMAP.md).
+Counterparts of the JAX package's subcommands on one device:
+
+- ``train`` builds the trainer, feeds it :func:`synthetic_lm_batches` and
+  prints one JSON summary line with the keys this port can fill
+  (``model``, ``steps``, ``first_loss``, ``last_loss``, ``tokens_per_s``,
+  plus ``device``).  ``--data``, ``--ckpt`` and ``--restore`` are not
+  ported yet (ROADMAP.md).
+- ``profile`` measures each ``--model``'s step, fits its goodput curve into
+  the ``--curves`` JSON that the simulator's Optimus policy reads
+  (``gpuschedule_tpu run --policy optimus --curves``), and prints
+  ``{"model", "theta"}`` per model, then ``{"model", "trace"}`` when
+  ``--trace-dir`` is given.
 """
 
 from __future__ import annotations
@@ -73,6 +80,33 @@ def cmd_train(args) -> int:
     return 0
 
 
+def cmd_profile(args) -> int:
+    from gpuschedule_tpu_torch import resolve_device
+    from gpuschedule_tpu_torch.profiler import CurveCache, capture_trace, profile_model
+
+    try:
+        device = resolve_device(args.device)
+        ks = tuple(int(k) for k in args.ks.split(","))
+    except (ValueError, RuntimeError) as e:
+        raise SystemExit(str(e))
+    cache = CurveCache(args.curves)
+    for model in args.model:
+        try:
+            curve = profile_model(
+                model, ks=ks, generation=args.generation, batch_size=args.batch_size,
+                seq_len=args.seq_len, sp=args.sp, tp=args.tp, pp=args.pp, cache=cache,
+                device=device,
+            )
+        except (ValueError, NotImplementedError) as e:
+            raise SystemExit(str(e))
+        print(json.dumps({"model": model, "theta": list(curve.theta)}))
+        if args.trace_dir:
+            path = capture_trace(model, f"{args.trace_dir}/{model}", batch_size=args.batch_size,
+                                 seq_len=args.seq_len, device=device)
+            print(json.dumps({"model": model, "trace": path}))
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="gpuschedule_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -94,6 +128,22 @@ def build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--device", default=None,
                     help="'cpu' for the plain PyTorch versions; default: the card")
     tr.set_defaults(fn=cmd_train)
+
+    prof = sub.add_parser("profile", help="fit goodput curves from a step measured on the device")
+    prof.add_argument("--model", action="append", required=True)
+    prof.add_argument("--ks", default="1,2,4,8,16,32,64")
+    prof.add_argument("--generation", default="v5e",
+                      help="TPU generation whose ICI/DCN model extends the measured step")
+    prof.add_argument("--batch-size", type=int, default=8)
+    prof.add_argument("--seq-len", type=int, default=128)
+    prof.add_argument("--sp", type=int, default=1, help="not ported: must be 1")
+    prof.add_argument("--tp", type=int, default=1, help="not ported: must be 1")
+    prof.add_argument("--pp", type=int, default=1, help="not ported: must be 1")
+    prof.add_argument("--curves", required=True)
+    prof.add_argument("--trace-dir", help="also write a torch.profiler Chrome trace of the step here")
+    prof.add_argument("--device", default=None,
+                      help="'cpu' for the plain PyTorch versions; default: the card")
+    prof.set_defaults(fn=cmd_profile)
     return p
 
 

@@ -105,6 +105,16 @@ def load(stem: str) -> ctypes.CDLL:
     return lib
 
 
+def launch(lib: ctypes.CDLL, fn, *args) -> None:
+    """Call the C entry point ``fn`` of ``lib``; a non-zero return (a
+    refused launch, an unsupported shape) raises with the library's
+    ``gst_error_string`` for it."""
+    rc = fn(*args)
+    if rc != 0:
+        msg = lib.gst_error_string(rc).decode()
+        raise RuntimeError(f"{fn.__name__} failed: {msg} (code {rc})")
+
+
 def build_log(stem: str) -> str:
     """The compiler's report for ``csrc/<stem>.cu``, once it was built here."""
     p = _lib_path(CSRC / f"{stem}.cu").with_suffix(".so.log")

@@ -120,10 +120,9 @@ def _check_rows(rows: torch.Tensor, bh: int, s: int, name: str) -> None:
 
 
 def _launch(fn, *args) -> None:
-    rc = fn(*args)
-    if rc != 0:
-        msg = _kernels().gst_error_string(rc).decode()
-        raise RuntimeError(f"{fn.__name__} failed: {msg} (code {rc})")
+    from gpuschedule_tpu_torch.ops import _build
+
+    _build.launch(_kernels(), fn, *args)
 
 
 def _stream() -> int:

@@ -1,23 +1,34 @@
-"""Step and callable timing on the card.
+"""Step and callable timing on the card, and the goodput-curve profile.
 
-Counterpart of ``gpuschedule_tpu/profiler/harness.py`` (``time_steps``,
-``time_callable``, ``measure_step_time`` on one device).  PyTorch returns
-before the device finishes, so every timed window ends in
-``torch.cuda.synchronize()`` (steps) or is read from CUDA events
-(callables).  The JAX package's host-readback fence works around its TPU
-transport and has no counterpart here.  The curve fit, ``profile_model``
-and ``CurveCache`` are not ported yet (ROADMAP.md).
+Counterpart of ``gpuschedule_tpu/profiler/harness.py`` on one device:
+``time_steps``, ``time_callable``, ``measure_step_time``, ``capture_trace``
+and ``profile_model``.  PyTorch returns before the device finishes, so
+every timed window ends in ``torch.cuda.synchronize()`` (steps) or is read
+from CUDA events (callables).  The JAX package's host-readback fence works
+around its TPU transport and has no counterpart here, nor have its tracer
+spans (ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import math
 import statistics
 import time
-from typing import List
+from pathlib import Path
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
+from gpuschedule_tpu_torch.cluster.tpu import GENERATIONS
+from gpuschedule_tpu_torch.models import MODEL_CONFIGS
 from gpuschedule_tpu_torch.parallel.train import ShardedTrainer
+from gpuschedule_tpu_torch.profiler.goodput import (
+    CurveCache,
+    GoodputCurve,
+    fit_step_time_curve,
+    synthesize_step_times,
+)
+from gpuschedule_tpu_torch.profiler.ici import dp_gradient_bytes
 
 
 def _fence(x) -> None:
@@ -96,3 +107,116 @@ def measure_step_time(
     _fence(loss)
     step_s, _ = time_steps(trainer.step, state, batch, iters=iters, repeats=repeats)
     return step_s
+
+
+def capture_trace(
+    model_name: str,
+    out_dir,
+    *,
+    batch_size: int = 8,
+    seq_len: int = 128,
+    steps: int = 3,
+    device=None,
+) -> str:
+    """Write a Chrome trace (``torch.profiler``) of ``steps`` train steps
+    to ``out_dir/trace.json`` and return its path.
+
+    The deep-inspection path beside :func:`measure_step_time`: the median
+    comes from there, the per-kernel timeline from here.  The traced step is
+    the measured one (same trainer, batch and sequence length), after one
+    warm-up step; on the card the window records device activity and ends in
+    a synchronize, so every step's kernels lie inside it.  View the file in
+    ui.perfetto.dev or chrome://tracing."""
+    from torch.profiler import ProfilerActivity, profile
+
+    trainer = ShardedTrainer(model_name, batch_size=batch_size, seq_len=seq_len, device=device)
+    state = trainer.init(seed=0)
+    batch = trainer.make_batch(seed=0)
+    state, loss = trainer.step(state, batch)
+    _fence(loss)
+    cuda = trainer.device.type == "cuda"
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=activities) as prof:
+        for _ in range(steps):
+            state, loss = trainer.step(state, batch)
+        if cuda:
+            torch.cuda.synchronize(trainer.device)
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    path = out / "trace.json"
+    prof.export_chrome_trace(str(path))
+    return str(path)
+
+
+def profile_model(
+    model_name: str,
+    *,
+    ks: Sequence[int] = (1, 2, 4, 8, 16, 32, 64),
+    generation: str = "v5e",
+    batch_size: int = 8,
+    seq_len: int = 128,
+    cache: Optional[CurveCache] = None,
+    sp: int = 1,
+    tp: int = 1,
+    pp: int = 1,
+    device=None,
+) -> GoodputCurve:
+    """Fit a goodput curve for ``model_name``: measure k = 1 on the device,
+    synthesize every other k, fit, and store the curve in ``cache``.
+
+    What the JAX package's ``profile_model`` does on one device: the
+    measured step anchors ``synthesize_step_times`` (the TPU ICI/DCN model of
+    ``generation``, unchanged, so the simulator reads the curve it expects),
+    the smooth family is fit on the intra-pod points and carries the
+    multislice fields, and the cache entry has the same key, ``source`` and
+    points.  The device is ``cuda`` unless ``device="cpu"``.  ``sp``, ``tp``
+    and ``pp`` above 1 need a mesh, which is not ported yet."""
+    if (sp, tp, pp) != (1, 1, 1):
+        raise NotImplementedError(
+            f"only sp=tp=pp=1 is ported (got sp={sp} tp={tp} pp={pp}); "
+            "multi-GPU meshes and the pipeline trainer are queued in ROADMAP.md"
+        )
+    cfg = MODEL_CONFIGS[model_name]
+    n_devices = 1
+
+    def measure() -> float:
+        return measure_step_time(model_name, batch_size=batch_size, seq_len=seq_len,
+                                 device=device)
+
+    measured: Dict[int, float] = {k: measure() for k in ks if k <= n_devices}
+    synth_ks = [k for k in ks if k not in measured]
+    if synth_ks and 1 not in measured:
+        # the analytic extension anchors on the one-device point
+        measured[1] = measure()
+    points = dict(measured)
+    if synth_ks:
+        synth = synthesize_step_times(
+            single_chip_step_s=measured[1],
+            param_count=cfg.param_count,
+            generation=generation,
+            ks=synth_ks,
+        )
+        points.update(dict(zip(synth_ks, synth)))
+
+    # Fit the smooth family on intra-pod points only (it cannot represent
+    # the ICI->DCN step at the pod boundary); the curve carries the
+    # multislice fields and adds the DCN phase in step_time_dcn.  The
+    # measured k = 1 point is always intra-pod, so the JAX package's branch
+    # for a request wholly beyond one pod does not arise on one device.
+    pod = math.prod(GENERATIONS[generation]["pod_dims"])
+    intra = {k: v for k, v in points.items() if k <= pod}
+    curve = fit_step_time_curve(sorted(intra), [intra[k] for k in sorted(intra)])
+    curve = GoodputCurve(curve.theta, pod_chips=pod,
+                         dcn_grad_bytes=dp_gradient_bytes(cfg.param_count))
+    if cache is not None:
+        cache.put(
+            model_name,
+            curve,
+            source=(
+                f"measured<= {n_devices} chips (sp={sp}, tp={tp}, pp={pp}), "
+                f"analytic beyond ({generation})"
+            ),
+            points=points,
+        )
+        cache.save()
+    return curve

@@ -12,7 +12,9 @@ from gpuschedule_tpu_torch import resolve_device
 from gpuschedule_tpu_torch.cli import main
 from gpuschedule_tpu_torch.models import build_model
 from gpuschedule_tpu_torch.parallel import ShardedTrainer
-from gpuschedule_tpu_torch.profiler import measure_step_time
+from gpuschedule_tpu_torch.ops.overhead_probe import probe_copy
+from gpuschedule_tpu_torch.profiler import measure_step_time, profile_model
+from gpuschedule_tpu_torch.tools.overhead_probe import run_grid
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "gpuschedule_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -32,20 +34,33 @@ def test_resolve_device_raises_without_cuda(no_cuda):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-def test_entry_points_default_to_the_card(no_cuda):
+def test_entry_points_default_to_the_card(no_cuda, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ShardedTrainer("transformer-tiny")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         measure_step_time("transformer-tiny")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        profile_model("transformer-tiny")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_grid(64, kernel=probe_copy)
     with pytest.raises(SystemExit, match="no CUDA device"):
         main(["train", "--model", "transformer-tiny", "--steps", "1"])
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        main(["profile", "--model", "transformer-tiny", "--curves", str(tmp_path / "c.json")])
+    assert not (tmp_path / "c.json").exists()
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ShardedTrainer("transformer-tiny", dp=2, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ShardedTrainer("transformer-tiny", sp=2, tp=2, device="cpu")
+    for kw in ({"sp": 2}, {"tp": 2}, {"pp": 2}):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            profile_model("transformer-tiny", device="cpu", **kw)
+    with pytest.raises(SystemExit, match="ROADMAP"):
+        main(["profile", "--model", "transformer-tiny", "--tp", "2", "--device", "cpu",
+              "--curves", str(tmp_path / "c.json")])
     for name in ("moe-tiny", "resnet-tiny"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(name)
