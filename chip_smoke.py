@@ -6,15 +6,22 @@
 Phases, each fatal on failure (exit code 1, no result line):
 
 1. device — the card's name, and its name and power limit from nvidia-smi;
-2. build — nvcc builds ``ops/csrc/*.cu`` from this checkout;
+2. build — nvcc builds ``ops/csrc/*.cu`` from this checkout; each kernel's
+   registers and spills from ``-Xptxas -v`` (the bf16 tensor-core kernels
+   must not spill at D = 32 and 64), and the count of ``HMMA`` instructions
+   in each kernel's SASS from ``cuobjdump`` (the bf16 forward and dk/dv
+   kernels must have some);
 3. parity — each CUDA kernel (forward, dq, dk/dv) against its plain PyTorch
    version on the same inputs: transformer-long's attention shape
-   (B=2, S=4096, H=8, D=32, bf16, causal) and ragged shapes (S=1000 f32,
-   causal and not; other head dims); the flash op against the dense oracle;
+   (B=2, S=4096, H=8, D=32, bf16, causal) and ragged shapes in bf16 (the
+   tensor-core kernels) and f32 (the FMA kernels) at D = 32, 64, 96 and 128,
+   causal and not; the flash op against the dense oracle in f32 and bf16;
    flash and dense transformer-long losses at init on a short sequence;
 4. kernel times — CUDA events at the transformer-long shape, beside the plain
    versions, ``F.scaled_dot_product_attention`` (a yardstick the port never
-   calls) and the least time the card could take (``bound_ms``);
+   calls) and the least time the card could take (``bound_ms``); for the
+   forward and dk/dv kernels also the device time per launch from a
+   ``torch.profiler`` window, beside the event time;
 5. flash train step — ``ShardedTrainer("transformer-long", batch_size=2,
    seq_len=4096, flash_attn=True)``: 3 warm-up steps, ``time_steps(iters=5,
    repeats=3)``, one last step; the loss must be finite and fall, and the
@@ -44,13 +51,17 @@ Exits non-zero when CUDA is unavailable or the port cannot be imported.
 from __future__ import annotations
 
 import importlib
+import importlib.util
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 # Published dense peaks of one H100 SXM (NVIDIA data sheet, 700 W).
 PEAK_BF16_FLOPS = 989e12
@@ -62,11 +73,17 @@ LSE_TOL = 1e-3      # max abs error of the f32 logsumexp rows
 LOSS_RTOL = 2e-3    # flash vs dense loss at init (the JAX suite's bound)
 
 SOURCE = "gpuschedule_tpu_torch/ops/csrc/flash_attention.cu"
+# wrapper -> (the kernel bf16 inputs launch, the kernel f32 inputs launch, replaces)
 KERNELS = {
-    "flash_fwd": ("fwd_kernel", "gpuschedule_tpu/ops/flash_attention.py:98"),
-    "flash_bwd_dq": ("bwd_dq_kernel", "gpuschedule_tpu/ops/flash_attention.py:155"),
-    "flash_bwd_dkdv": ("bwd_dkdv_kernel", "gpuschedule_tpu/ops/flash_attention.py:202"),
+    "flash_fwd": ("fwd_mma_kernel", "fwd_kernel",
+                  "gpuschedule_tpu/ops/flash_attention.py:98"),
+    "flash_bwd_dq": ("bwd_dq_kernel", "bwd_dq_kernel",
+                     "gpuschedule_tpu/ops/flash_attention.py:155"),
+    "flash_bwd_dkdv": ("dkdv_mma_kernel", "bwd_dkdv_kernel",
+                       "gpuschedule_tpu/ops/flash_attention.py:202"),
 }
+TENSOR_CORE_KERNELS = ("fwd_mma_kernel", "dkdv_mma_kernel")
+NO_SPILL_HEAD_DIMS = (32, 64)  # transformer-long, transformer-xlong
 MAIN_SHAPE = (2, 4096, 8, 32)  # transformer-long: d_model 256 / 8 heads, S = max_seq
 
 PROBE_SOURCE = "gpuschedule_tpu_torch/ops/csrc/overhead_probe.cu"
@@ -134,6 +151,91 @@ def bf16_ulps(torch, a, b):
     a, b = a.float(), b.float()
     _, e = torch.frexp(torch.maximum(a.abs(), b.abs()))
     return ((a - b).abs() / torch.ldexp(torch.ones_like(a), e - 8)).max().item()
+
+
+def ptxas_report(log_text: str) -> dict:
+    """{mangled kernel name: {"registers", "spill_stores", "spill_loads"}}
+    from nvcc's ``-Xptxas -v`` output."""
+    out: dict = {}
+    name = None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[name]["spill_stores"], out[name]["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def mangled_name(names, kernel: str, d: int):
+    """The mangled name among ``names`` of ``kernel`` at head dim ``d``
+    (either dtype), or None."""
+    for name in names:
+        if f"{len(kernel)}{kernel}I" in name and f"Li{d}E" in name:
+            return name
+    return None
+
+
+def cuobjdump_path():
+    """cuobjdump beside nvcc, on PATH, or the copy Triton bundles; else None."""
+    from gpuschedule_tpu_torch.ops import _build
+
+    cands = [Path(_build.nvcc_path()).parent / "cuobjdump", shutil.which("cuobjdump")]
+    spec = importlib.util.find_spec("triton")
+    if spec is not None and spec.origin:
+        cands.append(Path(spec.origin).parent / "backends" / "nvidia" / "bin" / "cuobjdump")
+    for c in cands:
+        if c and Path(c).is_file():
+            return str(c)
+    return None
+
+
+def hmma_counts(lib_path: str, tool: str) -> dict:
+    """{mangled kernel name: number of HMMA instructions} in the library's SASS."""
+    res = subprocess.run([tool, "--dump-sass", lib_path], capture_output=True, text=True,
+                         timeout=300)
+    check(res.returncode == 0, f"cuobjdump failed: {res.stderr.strip()[:500]}")
+    counts: dict = {}
+    name = None
+    for line in res.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts.setdefault(name, 0)
+        elif name is not None and "HMMA" in line:
+            counts[name] += 1
+    return counts
+
+
+def device_ms_per_launch(torch, fn, kernel: str, launches: int = 5):
+    """(ms per launch, kernel names seen) of the device kernels whose name
+    holds ``kernel`` over ``launches`` calls of ``fn`` in a
+    ``torch.profiler`` window; ms is None if the profiler saw no such kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(launches):
+            fn()
+        torch.cuda.synchronize()
+    names, total = set(), 0.0
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA and not getattr(evt, "is_user_annotation", False):
+            names.add(evt.name)
+            if kernel in evt.name:
+                total += evt.time_range.elapsed_us() / 1e3
+    hits = [n for n in names if kernel in n]
+    return (total / launches if hits else None), sorted(names)
 
 
 def profile_steps(torch, trainer, state, tokens, steps: int = 2) -> dict:
@@ -318,14 +420,45 @@ def run() -> dict:
         for line in _build.build_log(stem).splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 print(f"ptxas: {line.strip()}", file=sys.stderr)
+    ptxas = ptxas_report(_build.build_log("flash_attention"))
+    hmma = None
+    tool = cuobjdump_path()
+    if tool is None:
+        log("cuobjdump: not found beside nvcc, on PATH or in Triton; no SASS check")
+    else:
+        hmma = hmma_counts(str(_build.build_all()["flash_attention"]), tool)
+    build_report = {}
+    for cname in sorted({c for bf, f32, _ in KERNELS.values() for c in (bf, f32)}):
+        for d in fa.HEAD_DIMS:
+            entry = ptxas.get(mangled_name(ptxas, cname, d), {})
+            n_hmma = None if hmma is None else hmma.get(mangled_name(hmma, cname, d))
+            build_report[f"{cname}<{d}>"] = {**entry, "hmma": n_hmma}
+            log(f"kernel {cname} D={d}: {entry.get('registers')} registers, spill "
+                f"{entry.get('spill_stores')}/{entry.get('spill_loads')} bytes "
+                f"(stores/loads), {n_hmma} HMMA")
+    for cname in TENSOR_CORE_KERNELS:
+        for d in fa.HEAD_DIMS:
+            rep = build_report[f"{cname}<{d}>"]
+            check("registers" in rep, f"ptxas reported nothing for {cname} at D={d}")
+            if d in NO_SPILL_HEAD_DIMS:
+                check(rep.get("spill_stores", 0) == 0 and rep.get("spill_loads", 0) == 0,
+                      f"{cname} spills at D={d}: {rep}")
+            if hmma is not None:
+                check((rep["hmma"] or 0) > 0, f"{cname} at D={d} has no HMMA in its SASS")
 
     # ---------------------------------------------------------------- 3 --
     errs = {name: 0.0 for name in KERNELS}
-    parity = [
+    parity = [  # bf16: the tensor-core kernels (and dq); f32: the FMA kernels
         (MAIN_SHAPE, torch.bfloat16, True),
+        ((2, 1000, 4, 64), torch.bfloat16, True),
+        ((2, 1000, 4, 64), torch.bfloat16, False),
+        ((1, 333, 2, 96), torch.bfloat16, True),
+        ((1, 200, 3, 128), torch.bfloat16, False),
+        ((1, 200, 3, 128), torch.bfloat16, True),
+        ((1, 77, 2, 32), torch.bfloat16, True),
+        ((1, 77, 2, 32), torch.bfloat16, False),
         ((2, 1000, 4, 64), torch.float32, True),
         ((2, 1000, 4, 64), torch.float32, False),
-        ((1, 333, 2, 96), torch.bfloat16, True),
         ((1, 200, 3, 128), torch.float32, False),
         ((1, 77, 2, 32), torch.float32, True),
     ]
@@ -358,17 +491,21 @@ def run() -> dict:
             errs[name] = max(errs[name], e)
 
     # the whole op (autograd through the three kernels) against the dense oracle
-    gen = torch.Generator(device=dev).manual_seed(7)
-    q, k, v = (torch.randn((2, 1000, 4, 64), generator=gen, device=dev).requires_grad_(True)
-               for _ in range(3))
-    out = fa.flash_attention(q, k, v, causal=True)
-    grads = torch.autograd.grad((out ** 2).sum(), (q, k, v))
-    ref = dense_attention(q, k, v, causal=True)
-    grads_r = torch.autograd.grad((ref ** 2).sum(), (q, k, v))
-    e_op = (out - ref).abs().max().item()
-    r_op = max((a - b).abs().max().item() / b.abs().max().item() for a, b in zip(grads, grads_r))
-    log(f"op vs dense oracle (2, 1000, 4, 64) f32 causal: out {e_op:.3e} grads {r_op:.3e} rel")
-    check(e_op < FWD_TOL and r_op < GRAD_TOL, "flash op disagrees with the dense oracle")
+    for dtype in (torch.float32, torch.bfloat16):
+        gen = torch.Generator(device=dev).manual_seed(7)
+        q, k, v = (torch.randn((2, 1000, 4, 64), generator=gen, device=dev).to(dtype)
+                   .requires_grad_(True) for _ in range(3))
+        out = fa.flash_attention(q, k, v, causal=True)
+        grads = torch.autograd.grad((out.float() ** 2).sum(), (q, k, v))
+        ref = dense_attention(q, k, v, causal=True)
+        grads_r = torch.autograd.grad((ref.float() ** 2).sum(), (q, k, v))
+        e_op = (out.float() - ref.float()).abs().max().item()
+        r_op = max((a.float() - b.float()).abs().max().item() / b.float().abs().max().item()
+                   for a, b in zip(grads, grads_r))
+        log(f"op vs dense oracle (2, 1000, 4, 64) {dtype} causal: out {e_op:.3e} "
+            f"grads {r_op:.3e} rel")
+        check(e_op < FWD_TOL and r_op < GRAD_TOL,
+              f"flash op disagrees with the dense oracle in {dtype}")
 
     # model level: flash and dense losses of the same init agree
     losses = {}
@@ -415,6 +552,26 @@ def run() -> dict:
         log(f"time {name} {MAIN_SHAPE} bf16 causal: {k_ms:.4f} ms (plain {p_ms:.4f} ms, "
             f"bound {bounds[name][0]:.4f} ms by {bounds[name][1]}, "
             f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB)")
+    # device time per launch beside the event time: at ~0.1 ms a call the
+    # wrapper's host path comes close to the kernel's own time
+    device_ms = {}
+    for name, fn in (("flash_fwd", lambda: fa.flash_fwd(q, k, v, causal=True)),
+                     ("flash_bwd_dkdv",
+                      lambda: fa.flash_bwd_dkdv(q, k, v, g, lse, delta, causal=True))):
+        cname = KERNELS[name][0]
+        dev_ms, _ = device_ms_per_launch(torch, fn, cname)
+        device_ms[name] = dev_ms
+        if dev_ms is None:
+            log(f"device time {cname}: the profiler recorded no device time for it")
+        else:
+            ev_ms = times[name][0]
+            what = "the host path" if ev_ms > 1.2 * dev_ms else "the kernel"
+            log(f"device time {cname} {MAIN_SHAPE} bf16 causal: {dev_ms:.4f} ms per launch "
+                f"(profiler) vs {ev_ms:.4f} ms per call (CUDA events): the event time "
+                f"measured {what}")
+    _, sdpa_kernels = device_ms_per_launch(
+        torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), "flash", 1)
+    log(f"sdpa forward ran: {sdpa_kernels}")
     bwd_ms = times["flash_bwd_dq"][0] + times["flash_bwd_dkdv"][0]
     bwd_bound = bounds["flash_bwd_dq"][0] + bounds["flash_bwd_dkdv"][0]
     log(f"time sdpa forward {sdpa_fwd_ms:.4f} ms; K2+K3 {bwd_ms:.4f} ms "
@@ -500,17 +657,18 @@ def run() -> dict:
         "dense": {"model": "transformer-large", "batch": 16, "seq": 512,
                   "step_ms": dense_s * 1e3, "tokens_per_s": dense_tps, "mfu": dense_mfu,
                   "profile": dense_prof},
+        "build": build_report, "device_ms_per_launch": device_ms,
         "backward": {"ms": bwd_ms, "bound_ms": bwd_bound,
                      "plain_ms": times["flash_bwd_dq"][1] + times["flash_bwd_dkdv"][1],
                      "library_ms": sdpa_bwd_ms},
     }
     kernels = [
-        {"name": cname, "route": "cuda", "source": SOURCE, "replaces": replaces,
-         "launches": launches[name], "max_abs_err": errs[name],
+        {"name": cname, "f32_kernel": f32_name, "route": "cuda", "source": SOURCE,
+         "replaces": replaces, "launches": launches[name], "max_abs_err": errs[name],
          "ms": times[name][0], "plain_ms": times[name][1],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
          "library_ms": library[name]}
-        for name, (cname, replaces) in KERNELS.items()
+        for name, (cname, f32_name, replaces) in KERNELS.items()
     ] + [
         {"name": cname, "route": "cuda", "source": PROBE_SOURCE, "replaces": replaces,
          "launches": probe_launches[name], "max_abs_err": probe_errs[name],

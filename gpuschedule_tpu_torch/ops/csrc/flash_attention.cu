@@ -1,14 +1,17 @@
 // Flash attention for Hopper (sm_90a): forward, dq and dk/dv kernels.
 //
 // Replaces the three Pallas TPU kernels of gpuschedule_tpu/ops/flash_attention.py:
-//   fwd_kernel      <- _fwd_kernel       (:98-152)
-//   bwd_dq_kernel   <- _bwd_dq_kernel    (:155-199)
-//   bwd_dkdv_kernel <- _bwd_dkdv_kernel  (:202-252)
+//   fwd_mma_kernel (bf16), fwd_kernel (f32)        <- _fwd_kernel       (:98-152)
+//   bwd_dq_kernel (bf16 and f32)                   <- _bwd_dq_kernel    (:155-199)
+//   dkdv_mma_kernel (bf16), bwd_dkdv_kernel (f32)  <- _bwd_dkdv_kernel  (:202-252)
 // They compute what the Pallas kernels compute (the plain PyTorch versions in
 // ../flash_attention.py spell it out), not how: Pallas walks a sequential grid
 // and carries state across k steps in VMEM scratch; here one thread block owns
 // one (batch*head, 64-row tile) and loops over the other tiles itself, so the
-// causal skip is a loop bound and the state lives in registers.
+// causal skip is a loop bound and the state lives in registers.  The dtype
+// picks the kernel: bf16 (the model's dtype, the main path) runs the
+// tensor-core kernels, f32 the FMA kernels.  Neither is a fallback for the
+// other.
 //
 // Layout.  q, k, v, dO, O, dq, dk, dv are read and written in the caller's
 // (B, S, H, D) layout (row (b, s, h) starts at ((b*S + s)*H + h)*D), so no
@@ -17,28 +20,61 @@
 // the `cols < seq_len` rule of the Pallas `_mask`: padding is never visible.
 //
 // Numerics, as in the Pallas kernels.  Products take their operands in the
-// input dtype (bf16 or f32) and accumulate in f32: a bf16 operand widened to
-// f32 multiplies exactly, so an f32 FMA chain is the same arithmetic.
-// sm_scale multiplies the f32 product; p is rounded to V's dtype before p.V and
-// p^T.dO, ds to K's and q's dtype before ds.K and ds^T.q.  The running max,
-// denominator and accumulators are f32 in registers.
+// input dtype (bf16 or f32) and accumulate in f32.  sm_scale multiplies the
+// f32 product; p is rounded to V's dtype before p.V and p^T.dO, ds to K's and
+// q's dtype before ds.K and ds^T.q.  The running max, denominator and
+// accumulators are f32 in registers; masked entries of p are exactly 0; lse is
+// the natural-log logsumexp m + log(l).  The tensor-core kernels take their
+// exponentials as exp2 (ex2.approx, relative error ~2^-22) with log2(e)
+// folded into the scale (and into lse in the backward): the same function,
+// with the f32 rounding of one more product in the exponent's argument.
 //
-// Bound and design.  At transformer-long's shape (B*H = 16, S = 4096, D = 32,
-// causal, bf16) the work is matmul FLOPs: forward 17.2 GFLOP, dq 25.8,
-// dk/dv 34.4, against ~17 MB of q/k/v/o traffic, so the tensor-core rate
-// (989 TFLOP/s bf16) sets the bound, not the 3.35 TB/s memory.  This first
-// version does its products as f32 FMA loops on CUDA cores from shared-memory
-// tiles (no mma.sync / wgmma, no TMA): simple and right first; it runs at the
-// FMA rate, far from the tensor-core bound.  What the design does about the
-// bound: each K/V (or Q/dO) tile is loaded once per block into shared memory
-// and reused by all 64 rows of the block's tile; each thread keeps a 4 x 4
-// patch of the score tile and 4 rows of the output in registers, so every
-// shared-memory load feeds 4 FMAs or more; causal blocks skip every tile above
-// the diagonal by loop bound, and the heaviest blocks are launched first.
+// Bound.  At transformer-long's shape (B*H = 16, S = 4096, D = 32, causal,
+// bf16) the work is matmul FLOPs: forward 17.2 GFLOP, dq 25.8, dk/dv 34.4,
+// against ~17 MB of q/k/v/o traffic, so the tensor-core rate (989 TFLOP/s
+// bf16) sets the bound, not the 3.35 TB/s memory.  At D = 32 the softmax's
+// per-score work (scale, mask, max, exp2, sum: ~10 instructions and one MUFU
+// exp2 for every 2*2*32 matmul FLOPs) is large beside the products, so the
+// exp2 and FMA pipes, not only the tensor cores, bound a real kernel.
+//
+// Design of the tensor-core kernels (bf16).  One block of 4 warps owns a
+// 64-row tile; each warp owns 16 of its rows.
+//   * Products are mma.sync.m16n8k16 bf16 with f32 accumulators
+//     (mma_bf16.cuh).  A score tile computed by one mma is rounded and packed
+//     in registers as the A operand of the next (p.V; p^T.dO and ds^T.q in the
+//     backward), so p and ds never pass through shared memory.
+//   * The tiles that stream (K and V in the forward, q and dO in the backward)
+//     come in through a 2-stage cp.async ring: tile j+1 is in flight while
+//     tile j is computed.  The block's own tile (q, or k and v) is read once
+//     into registers as A fragments.
+//   * Shared-memory rows are padded by 16 bytes (D + 8 bf16), so the eight
+//     16-byte rows that one ldmatrix phase reads fall in eight distinct bank
+//     groups at every head dim: no bank conflicts, no swizzle.
+//   * Row statistics (max, sum) are reduced over the 4 lanes of a quad that
+//     share a row: two shuffles.
+//   * Mask arithmetic runs only on the diagonal tile and on the ragged last
+//     tile; tiles above the diagonal are skipped by the loop bound, and the
+//     heaviest blocks are launched first.
+//   * The dk/dv kernel is written transposed (S^T = K.q^T, its rows the
+//     block's keys), so p^T and ds^T come out of the mma already in the A
+//     layout of dV += p^T.dO and dK += ds^T.q.  At D > 64 it walks each q
+//     tile in halves of 32 columns, and reloads K and V fragments from
+//     shared memory, to keep its dK/dV accumulators in registers.
+// Not yet: wgmma, TMA, warp specialisation, persistent blocks.
+//
+// Design of the FMA kernels (f32, and dq in both dtypes).  Products as f32
+// FMA loops on CUDA cores from shared-memory tiles: each K/V (or Q/dO) tile is
+// loaded once per block and reused by all 64 rows of the block's tile; each of
+// 256 threads keeps a 4 x 4 patch of the score tile and 4 rows of the output in
+// registers, so every shared-memory load feeds 4 FMAs or more.  The tensor
+// cores have no f32 x f32 product short of TF32, which would change f32
+// results, so f32 inputs stay here.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -460,6 +496,395 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   }
 }
 
+// ------------------------------------------------ tensor-core kernels (bf16) --
+
+using bf16 = __nv_bfloat16;
+using namespace mma_bf16;
+
+constexpr int NTC = 128;  // threads of a tensor-core block: 4 warps x 16 rows
+static_assert(NTC == 2 * BQ, "the dk/dv kernel loads lse and delta rows one thread each");
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+// Shared-memory row stride of a 64 x D bf16 tile: D + 8 elements, so the rows
+// of one ldmatrix phase land in distinct bank groups (see the header).
+template <int D> constexpr int LDS = D + 8;
+template <int D> constexpr int TILE_ELEMS = 64 * LDS<D>;
+
+// Rows [r0, r0 + 64) of one head's (S, D) bf16 matrix into dst[r * (D + 8) + d]
+// with cp.async, 16 bytes a copy; rows >= S are filled with zeros.
+template <int D>
+__device__ __forceinline__ void tile_async(bf16* dst, const bf16* src, size_t base, int r0,
+                                           int S, int HD) {
+  constexpr int CH = D / 8;  // 16-byte chunks in a row
+  static_assert(64 * CH % NTC == 0, "every thread copies the same number of chunks");
+#pragma unroll
+  for (int it = 0; it < 64 * CH / NTC; ++it) {
+    const int i = threadIdx.x + it * NTC, r = i / CH, c = i % CH, s = r0 + r;
+    const bool ok = s < S;
+    cp_async16(smem_addr(dst + r * LDS<D> + c * 8),
+               src + base + (size_t)(ok ? s : 0) * HD + c * 8, ok);
+  }
+}
+
+// The A fragments of rows [r0, r0 + 16) of a smem tile, all D columns.
+template <int D>
+__device__ __forceinline__ void a_frags(uint32_t (&a)[D / 16][4], const bf16* tile, int r0) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    ldmatrix_x4(a[kk], smem_addr(tile + (r0 + (lane & 15)) * LDS<D> + kk * 16 +
+                                 (lane >> 4) * 8));
+}
+
+// B fragments of (rows of tile)^T for n-blocks 2*nb2 and 2*nb2 + 1 of the
+// rows starting at r0, k-step kk of the D columns: {b0, b1} of each.
+template <int D>
+__device__ __forceinline__ void bt_frags(uint32_t (&b)[4], const bf16* tile, int r0, int kk) {
+  const int lane = threadIdx.x & 31;
+  ldmatrix_x4(b, smem_addr(tile + (r0 + (lane & 7) + ((lane >> 4) << 3)) * LDS<D> +
+                           kk * 16 + ((lane >> 3) & 1) * 8));
+}
+
+// B fragments of the tile itself (k = its rows r0..r0+15, n = its columns),
+// for column blocks 2*nd2 and 2*nd2 + 1: {b0, b1} of each.
+template <int D>
+__device__ __forceinline__ void b_frags(uint32_t (&b)[4], const bf16* tile, int r0, int nd2) {
+  const int lane = threadIdx.x & 31;
+  ldmatrix_x4_trans(b, smem_addr(tile + (r0 + (lane & 15)) * LDS<D> + nd2 * 16 +
+                                 (lane >> 4) * 8));
+}
+
+// ------------------------------------------------------- forward, bf16 (K1) --
+// grid (nq, B*H), 128 threads; warp w owns q rows q0 + 16w .. q0 + 16w + 15,
+// lane (g, t) rows g and g + 8 of them.  Shared memory: q (64 x D), then two
+// stages of K and V (64 x D each).  At D = 32, left to itself, ptxas holds
+// the kernel to 96 registers and spills; asking for 4 blocks an SM lets it
+// use up to 128.
+template <int D>
+__global__ void __launch_bounds__(NTC, D == 32 ? 4 : 1)
+fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+               const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+               int S, int H, float scale, int causal) {
+  constexpr int KS = D / 16, ND = D / 8, NB = BK / 8, TE = TILE_ELEMS<D>;
+  extern __shared__ float4 smem4[];
+  bf16* qs = reinterpret_cast<bf16*>(smem4);
+  bf16* ks = qs + TE;      // 2 stages
+  bf16* vs = ks + 2 * TE;  // 2 stages
+
+  const int nq = (S + BQ - 1) / BQ;
+  const int qi = nq - 1 - (int)blockIdx.x;  // heaviest causal tiles first
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int HD = H * D;
+  const size_t base = (size_t)b * S * HD + (size_t)h * D;
+  const int q0 = qi * BQ;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int row0 = q0 + warp * 16 + g;  // this lane's rows: row0 and row0 + 8
+
+  // k tiles wholly above the diagonal contribute nothing: stop before them
+  const int kend = causal ? min(S, q0 + BQ) : S;
+  const int ntiles = (kend + BK - 1) / BK;
+
+  tile_async<D>(qs, q, base, q0, S, HD);
+  cp_async_commit();
+  tile_async<D>(ks, k, base, 0, S, HD);
+  tile_async<D>(vs, v, base, 0, S, HD);
+  cp_async_commit();
+  cp_async_wait<1>();  // q has landed; the first K/V tile may still be in flight
+  __syncthreads();
+  uint32_t qf[KS][4];  // this warp's 16 q rows, held for the whole loop
+  a_frags<D>(qf, qs, warp * 16);
+
+  const float scale2 = scale * LOG2E;  // scores in log2 units: exp2(s2 - m2)
+  float acc[ND][4], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
+
+  for (int j = 0; j < ntiles; ++j) {
+    const int k0 = j * BK;
+    if (j + 1 < ntiles) {  // the next tile is in flight while this one is computed
+      const int st = (j + 1) & 1;
+      tile_async<D>(ks + st * TE, k, base, k0 + BK, S, HD);
+      tile_async<D>(vs + st * TE, v, base, k0 + BK, S, HD);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // everything but the group just committed has landed
+    __syncthreads();
+    const bf16* kt = ks + (j & 1) * TE;
+    const bf16* vt = vs + (j & 1) * TE;
+
+    // s = q k^T: 16 rows x 64 keys per warp
+    float s[NB][4];
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+      for (int nb2 = 0; nb2 < NB / 2; ++nb2) {
+        uint32_t bk[4];
+        bt_frags<D>(bk, kt, nb2 * 16, kk);
+        mma(s[2 * nb2], qf[kk], bk[0], bk[1]);
+        mma(s[2 * nb2 + 1], qf[kk], bk[2], bk[3]);
+      }
+
+    // scale, mask (diagonal and ragged tiles only), online softmax
+    const bool masked = (causal && k0 + BK - 1 > q0) || k0 + BK > S;
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[nb][e] * scale2;
+        if (masked) {
+          const int row = row0 + (e >> 1) * 8, col = k0 + nb * 8 + 2 * t + (e & 1);
+          if (col >= S || (causal && col > row)) x = NEG_INF;
+        }
+        s[nb][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      corr[r] = exp2_approx(m[r] - mx[r]);
+      m[r] = mx[r];
+      l[r] *= corr[r];  // l is this lane's partial sum; the quad's is summed at the end
+    }
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd) {
+      acc[nd][0] *= corr[0];
+      acc[nd][1] *= corr[0];
+      acc[nd][2] *= corr[1];
+      acc[nd][3] *= corr[1];
+    }
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2_approx(s[nb][e] - m[e >> 1]);
+        l[e >> 1] += p;
+        s[nb][e] = p;
+      }
+
+    // o += bf16(p) v, p straight from the score registers
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t pa[4];
+      a_from_c(pa, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int nd2 = 0; nd2 < ND / 2; ++nd2) {
+        uint32_t bv[4];
+        b_frags<D>(bv, vt, kk * 16, nd2);
+        mma(acc[2 * nd2], pa, bv[0], bv[1]);
+        mma(acc[2 * nd2 + 1], pa, bv[2], bv[3]);
+      }
+    }
+    __syncthreads();  // this stage's readers are done before it is refilled
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int row = row0 + r * 8;
+    if (row < S) {
+      const float lf = fmaxf(l[r], 1e-30f);
+#pragma unroll
+      for (int nd = 0; nd < ND; ++nd)
+        *reinterpret_cast<uint32_t*>(o + base + (size_t)row * HD + nd * 8 + 2 * t) =
+            pack(acc[nd][2 * r] / lf, acc[nd][2 * r + 1] / lf);
+      if (t == 0) lse[(size_t)bh * S + row] = (m[r] + log2f(lf)) * LN2;
+    }
+  }
+}
+
+// --------------------------------------------------------- dk/dv, bf16 (K3) --
+// grid (nk, B*H), 128 threads; warp w owns keys k0 + 16w .. k0 + 16w + 15,
+// lane (g, t) keys g and g + 8 of them.  Computed transposed: s^T = K q^T has
+// the block's keys as rows, so p^T and ds^T are A operands in registers.
+// Shared memory: K, V (64 x D each), two stages of q and dO (64 x D each),
+// then two stages of the q tile's lse and delta rows (64 f32 each).
+template <int D>
+__global__ void __launch_bounds__(NTC)
+dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, const bf16* __restrict__ g,
+                const float* __restrict__ lse, const float* __restrict__ delta,
+                bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int H, float scale,
+                int causal) {
+  constexpr int KS = D / 16, ND = D / 8, TE = TILE_ELEMS<D>;
+  constexpr bool KV_REGS = D <= 64;    // K and V fragments held in registers
+  constexpr int QW = D <= 64 ? 64 : 32;  // q columns a warp takes at a time
+  constexpr int NB = QW / 8;
+  extern __shared__ float4 smem4[];
+  bf16* ks = reinterpret_cast<bf16*>(smem4);
+  bf16* vs = ks + TE;
+  bf16* qs = vs + TE;       // 2 stages
+  bf16* gs = qs + 2 * TE;   // 2 stages
+  float* lse_s = reinterpret_cast<float*>(gs + 2 * TE);  // 2 stages x 64
+  float* delta_s = lse_s + 2 * BQ;                          // 2 stages x 64
+
+  const int kb = blockIdx.x;  // low k tiles see the most q tiles: launched first
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int HD = H * D;
+  const size_t base = (size_t)b * S * HD + (size_t)h * D;
+  const int k0 = kb * BK;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gq = lane >> 2, t = lane & 3;
+  const int key0 = k0 + warp * 16 + gq;  // this lane's keys: key0 and key0 + 8
+
+  // q tiles wholly above this k tile see none of it: start at the diagonal
+  const int qstart = causal ? k0 : 0;
+  const int ntiles = (S - qstart + BQ - 1) / BQ;
+
+  // one stage: the q and dO tiles at q0, and their lse and delta rows
+  auto load_stage = [&](int st, int q0) {
+    tile_async<D>(qs + st * TE, q, base, q0, S, HD);
+    tile_async<D>(gs + st * TE, g, base, q0, S, HD);
+    const int i = threadIdx.x & (BQ - 1), row = q0 + i;
+    const bool ok = row < S;
+    const float* src = (threadIdx.x < BQ ? lse : delta) + (size_t)bh * S + (ok ? row : 0);
+    cp_async4(smem_addr((threadIdx.x < BQ ? lse_s : delta_s) + st * BQ + i), src, ok);
+  };
+
+  tile_async<D>(ks, k, base, k0, S, HD);
+  tile_async<D>(vs, v, base, k0, S, HD);
+  load_stage(0, qstart);
+  cp_async_commit();
+
+  const float scale2 = scale * LOG2E;
+  uint32_t kf[KS][4], vf[KS][4];
+  float dka[ND][4], dva[ND][4];
+#pragma unroll
+  for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[nd][e] = dva[nd][e] = 0.f;
+
+  for (int j = 0; j < ntiles; ++j) {
+    const int q0 = qstart + j * BQ;
+    if (j + 1 < ntiles) load_stage((j + 1) & 1, q0 + BQ);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    if (KV_REGS && j == 0) {
+      a_frags<D>(kf, ks, warp * 16);
+      a_frags<D>(vf, vs, warp * 16);
+    }
+    const bf16* qt = qs + (j & 1) * TE;
+    const bf16* gt = gs + (j & 1) * TE;
+    const float* ls = lse_s + (j & 1) * BQ;
+    const float* dl = delta_s + (j & 1) * BQ;
+    const bool masked = (causal && q0 < k0 + BK - 1) || q0 + BQ > S;
+
+#pragma unroll
+    for (int qo = 0; qo < BQ; qo += QW) {
+      if (!KV_REGS) a_frags<D>(kf, ks, warp * 16);
+
+      // s^T = K q^T: 16 keys x QW q columns per warp
+      float p[NB][4];
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) p[nb][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+        for (int nb2 = 0; nb2 < NB / 2; ++nb2) {
+          uint32_t bq[4];
+          bt_frags<D>(bq, qt, qo + nb2 * 16, kk);
+          mma(p[2 * nb2], kf[kk], bq[0], bq[1]);
+          mma(p[2 * nb2 + 1], kf[kk], bq[2], bq[3]);
+        }
+
+      // p^T = exp(scale s^T - lse[q]), normalised by the saved logsumexp;
+      // masked entries (diagonal and ragged tiles only) are exactly 0
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = qo + nb * 8 + 2 * t + (e & 1);
+          float x = exp2_approx(p[nb][e] * scale2 - ls[c] * LOG2E);
+          if (masked) {
+            const int col = q0 + c, key = key0 + (e >> 1) * 8;
+            if (col >= S || (causal && col < key)) x = 0.f;
+          }
+          p[nb][e] = x;
+        }
+
+      // dV += bf16(p^T) dO
+#pragma unroll
+      for (int kq = 0; kq < NB / 2; ++kq) {
+        uint32_t pa[4];
+        a_from_c(pa, p[2 * kq], p[2 * kq + 1]);
+#pragma unroll
+        for (int nd2 = 0; nd2 < ND / 2; ++nd2) {
+          uint32_t bg[4];
+          b_frags<D>(bg, gt, qo + kq * 16, nd2);
+          mma(dva[2 * nd2], pa, bg[0], bg[1]);
+          mma(dva[2 * nd2 + 1], pa, bg[2], bg[3]);
+        }
+      }
+
+      // dp^T = V dO^T
+      if (!KV_REGS) a_frags<D>(vf, vs, warp * 16);
+      float dp[NB][4];
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dp[nb][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+        for (int nb2 = 0; nb2 < NB / 2; ++nb2) {
+          uint32_t bg[4];
+          bt_frags<D>(bg, gt, qo + nb2 * 16, kk);
+          mma(dp[2 * nb2], vf[kk], bg[0], bg[1]);
+          mma(dp[2 * nb2 + 1], vf[kk], bg[2], bg[3]);
+        }
+
+      // ds^T = p^T (dp^T - delta[q]) scale, from the unrounded p
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = qo + nb * 8 + 2 * t + (e & 1);
+          dp[nb][e] = p[nb][e] * (dp[nb][e] - dl[c]) * scale;
+        }
+
+      // dK += bf16(ds^T) q
+#pragma unroll
+      for (int kq = 0; kq < NB / 2; ++kq) {
+        uint32_t da[4];
+        a_from_c(da, dp[2 * kq], dp[2 * kq + 1]);
+#pragma unroll
+        for (int nd2 = 0; nd2 < ND / 2; ++nd2) {
+          uint32_t bq[4];
+          b_frags<D>(bq, qt, qo + kq * 16, nd2);
+          mma(dka[2 * nd2], da, bq[0], bq[1]);
+          mma(dka[2 * nd2 + 1], da, bq[2], bq[3]);
+        }
+      }
+    }
+    __syncthreads();  // this stage's readers are done before it is refilled
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = key0 + r * 8;
+    if (row < S) {
+#pragma unroll
+      for (int nd = 0; nd < ND; ++nd) {
+        const size_t off = base + (size_t)row * HD + nd * 8 + 2 * t;
+        *reinterpret_cast<uint32_t*>(dk + off) = pack(dka[nd][2 * r], dka[nd][2 * r + 1]);
+        *reinterpret_cast<uint32_t*>(dv + off) = pack(dva[nd][2 * r], dva[nd][2 * r + 1]);
+      }
+    }
+  }
+}
+
 // ------------------------------------------------------------- launchers --
 
 template <typename T, int D>
@@ -510,6 +935,39 @@ int dkdv_launch(const void* q, const void* k, const void* v, const void* g,
   return (int)cudaGetLastError();
 }
 
+template <int D>
+int fwd_mma_launch(const void* q, const void* k, const void* v, void* o, float* lse,
+                   int B, int S, int H, float scale, int causal, cudaStream_t stream) {
+  const size_t smem = (size_t)5 * TILE_ELEMS<D> * sizeof(bf16);  // q, 2 x (K, V)
+  auto kernel = fwd_mma_kernel<D>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((S + BQ - 1) / BQ, B * H);
+  kernel<<<grid, NTC, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), lse, S, H, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int dkdv_mma_launch(const void* q, const void* k, const void* v, const void* g,
+                    const float* lse, const float* delta, void* dk, void* dv,
+                    int B, int S, int H, float scale, int causal, cudaStream_t stream) {
+  // K, V, 2 x (q, dO), then 2 x (lse, delta) rows
+  const size_t smem = (size_t)6 * TILE_ELEMS<D> * sizeof(bf16) + 4 * BQ * sizeof(float);
+  auto kernel = dkdv_mma_kernel<D>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((S + BK - 1) / BK, B * H);
+  kernel<<<grid, NTC, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(g), lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+      S, H, scale, causal);
+  return (int)cudaGetLastError();
+}
+
 // Head dims instantiated: 32 (transformer-tiny/-small/-long), 64 (-xlong),
 // 96 (-large), 128.  Anything else returns kUnsupported.
 constexpr int kUnsupported = -1;
@@ -528,6 +986,10 @@ int fwd_d(const void* q, const void* k, const void* v, void* o, float* lse,
           int B, int S, int H, int D, float scale, int causal, cudaStream_t st) {
   GST_DISPATCH_D(D, (fwd_launch<T, Dc>(q, k, v, o, lse, B, S, H, scale, causal, st)))
 }
+int fwd_mma_d(const void* q, const void* k, const void* v, void* o, float* lse,
+              int B, int S, int H, int D, float scale, int causal, cudaStream_t st) {
+  GST_DISPATCH_D(D, (fwd_mma_launch<Dc>(q, k, v, o, lse, B, S, H, scale, causal, st)))
+}
 
 template <typename T>
 int dq_d(const void* q, const void* k, const void* v, const void* g, const float* lse,
@@ -543,12 +1005,19 @@ int dkdv_d(const void* q, const void* k, const void* v, const void* g, const flo
   GST_DISPATCH_D(D, (dkdv_launch<T, Dc>(q, k, v, g, lse, delta, dk, dv, B, S, H, scale,
                                         causal, st)))
 }
+int dkdv_mma_d(const void* q, const void* k, const void* v, const void* g, const float* lse,
+               const float* delta, void* dk, void* dv, int B, int S, int H, int D,
+               float scale, int causal, cudaStream_t st) {
+  GST_DISPATCH_D(D, (dkdv_mma_launch<Dc>(q, k, v, g, lse, delta, dk, dv, B, S, H, scale,
+                                         causal, st)))
+}
 
 }  // namespace
 
 // ------------------------------------------------------- plain C interface --
 // Each returns 0 on success, a cudaError_t code from the launch, or -1 for an
-// unsupported head dim.  is_bf16: 1 for bfloat16 tensors, 0 for float32.
+// unsupported head dim.  is_bf16: 1 for bfloat16 tensors, 0 for float32; the
+// dtype picks the kernel (bf16: tensor cores for the forward and dk/dv).
 
 extern "C" {
 
@@ -556,7 +1025,7 @@ int gst_flash_fwd(const void* q, const void* k, const void* v, void* o, float* l
                   int B, int S, int H, int D, float scale, int causal, int is_bf16,
                   void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? fwd_d<__nv_bfloat16>(q, k, v, o, lse, B, S, H, D, scale, causal, st)
+  return is_bf16 ? fwd_mma_d(q, k, v, o, lse, B, S, H, D, scale, causal, st)
                  : fwd_d<float>(q, k, v, o, lse, B, S, H, D, scale, causal, st);
 }
 
@@ -575,8 +1044,7 @@ int gst_flash_bwd_dkdv(const void* q, const void* k, const void* v, const void* 
                        int B, int S, int H, int D, float scale, int causal, int is_bf16,
                        void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? dkdv_d<__nv_bfloat16>(q, k, v, g, lse, delta, dk, dv, B, S, H, D, scale,
-                                         causal, st)
+  return is_bf16 ? dkdv_mma_d(q, k, v, g, lse, delta, dk, dv, B, S, H, D, scale, causal, st)
                  : dkdv_d<float>(q, k, v, g, lse, delta, dk, dv, B, S, H, D, scale, causal,
                                  st);
 }

@@ -4,13 +4,17 @@ Counterpart of ``gpuschedule_tpu/ops/flash_attention.py``.  Three kernels,
 each behind a wrapper that launches it for CUDA tensors and runs its plain
 version for CPU tensors:
 
-=================  ======================  ====================================
-wrapper            CUDA kernel             replaces (Pallas TPU kernel)
-=================  ======================  ====================================
-:func:`flash_fwd`  ``fwd_kernel``          ``_fwd_kernel`` (:98-152)
-:func:`flash_bwd_dq`  ``bwd_dq_kernel``    ``_bwd_dq_kernel`` (:155-199)
-:func:`flash_bwd_dkdv`  ``bwd_dkdv_kernel``  ``_bwd_dkdv_kernel`` (:202-252)
-=================  ======================  ====================================
+======================  ==========================================  ==============================
+wrapper                 CUDA kernel (bf16 / f32)                    replaces (Pallas TPU kernel)
+======================  ==========================================  ==============================
+:func:`flash_fwd`       ``fwd_mma_kernel`` / ``fwd_kernel``         ``_fwd_kernel`` (:98-152)
+:func:`flash_bwd_dq`    ``bwd_dq_kernel`` (both)                    ``_bwd_dq_kernel`` (:155-199)
+:func:`flash_bwd_dkdv`  ``dkdv_mma_kernel`` / ``bwd_dkdv_kernel``   ``_bwd_dkdv_kernel`` (:202-252)
+======================  ==========================================  ==============================
+
+bf16 inputs (the model's dtype) run the forward and dk/dv on the tensor
+cores (``mma.sync`` fed by ``cp.async``); f32 inputs run FMA kernels, which
+keep full f32 products.  The dtype picks the kernel; neither is a fallback.
 
 The kernels live in ``csrc/flash_attention.cu`` (its header comment gives
 each kernel's bound and design), are built by ``nvcc`` at first use
@@ -114,6 +118,15 @@ def _check_cuda(tensors, rows=()) -> None:
         raise TypeError(f"q, k, v (and dO) must share one dtype, got {[t.dtype for t in tensors]}")
 
 
+def _check_aligned(tensors) -> None:
+    """The tensor-core kernels copy rows in 16-byte vectors (``cp.async``):
+    every tensor they read must start on a 16-byte boundary, which a view
+    at an odd offset may not."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("the CUDA kernels read 16-byte vectors: q, k, v (and dO) "
+                         "must be 16-byte aligned")
+
+
 def _check_rows(rows: torch.Tensor, bh: int, s: int, name: str) -> None:
     if rows.shape != (bh, s) or rows.dtype != torch.float32:
         raise ValueError(f"{name} must be f32 of shape {(bh, s)}, got {rows.dtype} {tuple(rows.shape)}")
@@ -202,6 +215,7 @@ def flash_fwd(q, k, v, *, causal: bool = True, block_k: Optional[int] = None):
         return flash_fwd_plain(q, k, v, causal, _block(s, block_k))
     _check_cuda_block(block_k)
     _check_cuda((q, k, v))
+    _check_aligned((q, k, v))
     out = torch.empty_like(q)
     lse = torch.empty((b * h, s), dtype=torch.float32, device=q.device)
     if out.numel():
@@ -300,6 +314,7 @@ def flash_bwd_dkdv(q, k, v, g, lse, delta, *, causal: bool = True,
         return flash_bwd_dkdv_plain(q, k, v, g, lse, delta, causal, _block(s, block_q))
     _check_cuda_block(block_q)
     _check_cuda((q, k, v, g), (lse, delta))
+    _check_aligned((q, k, v, g))
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     if dk.numel():

@@ -1,0 +1,2 @@
+// Stand-in for the CUDA header of that name: see emu.h.
+#include "emu.h"

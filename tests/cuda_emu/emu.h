@@ -1,0 +1,113 @@
+// Host emulation of the CUDA device features the flash-attention kernels
+// use, so that g++ can compile their source and run it on the CPU
+// (tests/test_torch_cuda_emulated.py).  A block's threads are coroutines
+// (ucontext) on one OS thread, switched only where a thread waits at a
+// barrier; the warp-wide operations (shuffles, ldmatrix, mma) exchange values
+// through the warp's slots between two warp barriers, and __syncthreads is a
+// barrier over the block.  This checks a kernel's indexing, fragment
+// layouts, masking and pipeline order; it says nothing of its speed, and it
+// is no substitute for running it on the card.
+#pragma once
+
+#include <math.h>
+
+#include <ucontext.h>
+
+#include <cmath>
+#include <cstdint>
+#include <cstring>
+#include <deque>
+#include <vector>
+
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __launch_bounds__(...)
+#define __shared__
+
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+struct emu_uint3 { unsigned x, y, z; };
+inline emu_uint3 threadIdx, blockIdx;  // set for the thread the scheduler resumes
+
+struct float4 { float x, y, z, w; };
+inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
+typedef int cudaError_t;
+typedef void* cudaStream_t;
+
+struct __nv_bfloat16 { uint16_t x; };
+struct __nv_bfloat162 { __nv_bfloat16 x, y; };
+inline __nv_bfloat16 __float2bfloat16(float f) {  // round to nearest even
+  uint32_t u;
+  std::memcpy(&u, &f, 4);
+  if ((u & 0x7fffffffu) > 0x7f800000u) return {uint16_t((u >> 16) | 0x40)};
+  u += 0x7fffu + ((u >> 16) & 1u);
+  return {uint16_t(u >> 16)};
+}
+inline float __bfloat162float(__nv_bfloat16 b) {
+  const uint32_t u = uint32_t(b.x) << 16;
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
+inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) {
+  return {__float2bfloat16(a), __float2bfloat16(b)};
+}
+inline int min(int a, int b) { return a < b ? a : b; }
+
+// cp.async: a thread's copies are held back until a wait retires their group,
+// so a kernel that reads a stage before waiting for it reads stale data.
+struct EmuCopy { uint32_t dst; const void* src; int n, size; };
+
+struct EmuBarrier {
+  int n, count = 0;
+  unsigned generation = 0;
+};
+
+struct EmuWarp {
+  EmuBarrier bar{32};
+  float f[32];
+  uint32_t u[32][8];
+};
+
+// One simulated thread: its context, stack and pending cp.async groups.
+struct EmuThread {
+  ucontext_t ctx;
+  std::vector<char> stack;
+  std::vector<EmuCopy> open_group;
+  std::deque<std::vector<EmuCopy>> groups;
+  bool done = false;
+};
+
+// The running block, and the thread the scheduler last resumed.
+inline ucontext_t emu_main;
+inline EmuThread* emu_thread;
+inline EmuWarp* emu_warp;
+inline int emu_lane;
+inline EmuBarrier* emu_block_bar;
+inline unsigned long emu_arrivals;  // barrier arrivals so far: the scheduler's progress
+
+inline void emu_wait(EmuBarrier& b) {
+  const unsigned gen = b.generation;
+  ++emu_arrivals;
+  if (++b.count == b.n) {
+    b.count = 0;
+    ++b.generation;
+    return;
+  }
+  while (b.generation == gen) swapcontext(&emu_thread->ctx, &emu_main);
+}
+
+inline void __syncthreads() { emu_wait(*emu_block_bar); }
+
+inline float __shfl_xor_sync(unsigned, float v, int mask) {
+  EmuWarp& w = *emu_warp;
+  w.f[emu_lane] = v;
+  emu_wait(w.bar);
+  const float r = w.f[emu_lane ^ mask];
+  emu_wait(w.bar);
+  return r;
+}

@@ -136,3 +136,38 @@ def test_failed_kernel_build_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA kernel build failed"):
         _build.build_all()
     assert not list(tmp_path.glob("*.so"))
+
+
+def test_alignment_check_and_compiled_tile():
+    """The tensor-core kernels copy 16-byte vectors, so the CUDA path
+    refuses a tensor that starts off a 16-byte boundary before any launch
+    (the check reads only ``data_ptr``, so it runs here on CPU views).  The
+    plain path on CPU tensors is unaffected: a misaligned view gives what
+    an aligned copy gives.  And the CUDA path still refuses a block other
+    than the compiled tile."""
+    from gpuschedule_tpu_torch.ops.flash_attention import (
+        TILE, _check_aligned, _check_cuda_block, attention_delta, flash_bwd_dkdv, flash_fwd,
+    )
+
+    n = 1 * 40 * 2 * 32
+    buf = torch.randn(n + 8, generator=torch.Generator().manual_seed(0)).to(torch.bfloat16)
+    q = buf[1:n + 1].view(1, 40, 2, 32)  # 2 bytes past an aligned start
+    assert q.data_ptr() % 16 == 2 and q.is_contiguous()
+    with pytest.raises(ValueError, match="16-byte"):
+        _check_aligned((q, q, q))
+    _check_aligned((buf[8:].view(1, 40, 2, 32),))  # 16 bytes in: fine
+
+    qa = q.clone()
+    assert qa.data_ptr() % 16 == 0
+    out, lse = flash_fwd(q, q, q, causal=True)
+    out_a, lse_a = flash_fwd(qa, qa, qa, causal=True)
+    assert torch.equal(out, out_a) and torch.equal(lse, lse_a)
+    delta = attention_delta(out, q)
+    dk, dv = flash_bwd_dkdv(q, q, q, q, lse, delta, causal=True)
+    dk_a, dv_a = flash_bwd_dkdv(qa, qa, qa, qa, lse, delta, causal=True)
+    assert torch.equal(dk, dk_a) and torch.equal(dv, dv_a)
+
+    _check_cuda_block(TILE)
+    for block in (32, 2 * TILE):
+        with pytest.raises(ValueError, match=f"{TILE}x{TILE}"):
+            _check_cuda_block(block)
