@@ -9,7 +9,7 @@ Phases, each fatal on failure (exit code 1, no result line):
 2. build — nvcc builds ``ops/csrc/*.cu`` from this checkout; each kernel's
    registers and spills from ``-Xptxas -v`` (the bf16 tensor-core kernels
    must not spill at D = 32 and 64), and the count of ``HMMA`` instructions
-   in each kernel's SASS from ``cuobjdump`` (the bf16 forward and dk/dv
+   in each kernel's SASS from ``cuobjdump`` (the bf16 forward, dq and dk/dv
    kernels must have some);
 3. parity — each CUDA kernel (forward, dq, dk/dv) against its plain PyTorch
    version on the same inputs: transformer-long's attention shape
@@ -20,8 +20,8 @@ Phases, each fatal on failure (exit code 1, no result line):
 4. kernel times — CUDA events at the transformer-long shape, beside the plain
    versions, ``F.scaled_dot_product_attention`` (a yardstick the port never
    calls) and the least time the card could take (``bound_ms``); for the
-   forward and dk/dv kernels also the device time per launch from a
-   ``torch.profiler`` window, beside the event time;
+   bf16 forward, dq and dk/dv kernels also the device time per launch from
+   a ``torch.profiler`` window, beside the event time;
 5. flash train step — ``ShardedTrainer("transformer-long", batch_size=2,
    seq_len=4096, flash_attn=True)``: 3 warm-up steps, ``time_steps(iters=5,
    repeats=3)``, one last step; the loss must be finite and fall, and the
@@ -77,12 +77,12 @@ SOURCE = "gpuschedule_tpu_torch/ops/csrc/flash_attention.cu"
 KERNELS = {
     "flash_fwd": ("fwd_mma_kernel", "fwd_kernel",
                   "gpuschedule_tpu/ops/flash_attention.py:98"),
-    "flash_bwd_dq": ("bwd_dq_kernel", "bwd_dq_kernel",
+    "flash_bwd_dq": ("dq_mma_kernel", "bwd_dq_kernel",
                      "gpuschedule_tpu/ops/flash_attention.py:155"),
     "flash_bwd_dkdv": ("dkdv_mma_kernel", "bwd_dkdv_kernel",
                        "gpuschedule_tpu/ops/flash_attention.py:202"),
 }
-TENSOR_CORE_KERNELS = ("fwd_mma_kernel", "dkdv_mma_kernel")
+TENSOR_CORE_KERNELS = ("fwd_mma_kernel", "dq_mma_kernel", "dkdv_mma_kernel")
 NO_SPILL_HEAD_DIMS = (32, 64)  # transformer-long, transformer-xlong
 MAIN_SHAPE = (2, 4096, 8, 32)  # transformer-long: d_model 256 / 8 heads, S = max_seq
 
@@ -448,7 +448,7 @@ def run() -> dict:
 
     # ---------------------------------------------------------------- 3 --
     errs = {name: 0.0 for name in KERNELS}
-    parity = [  # bf16: the tensor-core kernels (and dq); f32: the FMA kernels
+    parity = [  # bf16: the tensor-core kernels; f32: the FMA kernels
         (MAIN_SHAPE, torch.bfloat16, True),
         ((2, 1000, 4, 64), torch.bfloat16, True),
         ((2, 1000, 4, 64), torch.bfloat16, False),
@@ -556,6 +556,8 @@ def run() -> dict:
     # wrapper's host path comes close to the kernel's own time
     device_ms = {}
     for name, fn in (("flash_fwd", lambda: fa.flash_fwd(q, k, v, causal=True)),
+                     ("flash_bwd_dq",
+                      lambda: fa.flash_bwd_dq(q, k, v, g, lse, delta, causal=True)),
                      ("flash_bwd_dkdv",
                       lambda: fa.flash_bwd_dkdv(q, k, v, g, lse, delta, causal=True))):
         cname = KERNELS[name][0]

@@ -2,7 +2,7 @@
 //
 // Replaces the three Pallas TPU kernels of gpuschedule_tpu/ops/flash_attention.py:
 //   fwd_mma_kernel (bf16), fwd_kernel (f32)        <- _fwd_kernel       (:98-152)
-//   bwd_dq_kernel (bf16 and f32)                   <- _bwd_dq_kernel    (:155-199)
+//   dq_mma_kernel (bf16), bwd_dq_kernel (f32)      <- _bwd_dq_kernel    (:155-199)
 //   dkdv_mma_kernel (bf16), bwd_dkdv_kernel (f32)  <- _bwd_dkdv_kernel  (:202-252)
 // They compute what the Pallas kernels compute (the plain PyTorch versions in
 // ../flash_attention.py spell it out), not how: Pallas walks a sequential grid
@@ -10,8 +10,8 @@
 // one (batch*head, 64-row tile) and loops over the other tiles itself, so the
 // causal skip is a loop bound and the state lives in registers.  The dtype
 // picks the kernel: bf16 (the model's dtype, the main path) runs the
-// tensor-core kernels, f32 the FMA kernels.  Neither is a fallback for the
-// other.
+// tensor-core kernels, f32 the FMA kernels, for all three functions.
+// Neither is a fallback for the other.
 //
 // Layout.  q, k, v, dO, O, dq, dk, dv are read and written in the caller's
 // (B, S, H, D) layout (row (b, s, h) starts at ((b*S + s)*H + h)*D), so no
@@ -41,12 +41,12 @@
 // 64-row tile; each warp owns 16 of its rows.
 //   * Products are mma.sync.m16n8k16 bf16 with f32 accumulators
 //     (mma_bf16.cuh).  A score tile computed by one mma is rounded and packed
-//     in registers as the A operand of the next (p.V; p^T.dO and ds^T.q in the
-//     backward), so p and ds never pass through shared memory.
-//   * The tiles that stream (K and V in the forward, q and dO in the backward)
+//     in registers as the A operand of the next (p.V; ds.K in dq; p^T.dO and
+//     ds^T.q in dk/dv), so p and ds never pass through shared memory.
+//   * The tiles that stream (K and V in the forward and dq, q and dO in dk/dv)
 //     come in through a 2-stage cp.async ring: tile j+1 is in flight while
-//     tile j is computed.  The block's own tile (q, or k and v) is read once
-//     into registers as A fragments.
+//     tile j is computed.  The block's own tiles (q; q and dO; k and v) are
+//     read once into registers as A fragments.
 //   * Shared-memory rows are padded by 16 bytes (D + 8 bf16), so the eight
 //     16-byte rows that one ldmatrix phase reads fall in eight distinct bank
 //     groups at every head dim: no bank conflicts, no swizzle.
@@ -55,18 +55,23 @@
 //   * Mask arithmetic runs only on the diagonal tile and on the ragged last
 //     tile; tiles above the diagonal are skipped by the loop bound, and the
 //     heaviest blocks are launched first.
+//   * The dq kernel is the forward's loop with the backward's arithmetic:
+//     p from the saved lse (no online rescaling), dp = dO.V^T beside
+//     s = q.K^T, and ds packed as the A operand of dq += ds.K, whose B operand
+//     is the same K tile read with ldmatrix.trans.
 //   * The dk/dv kernel is written transposed (S^T = K.q^T, its rows the
 //     block's keys), so p^T and ds^T come out of the mma already in the A
-//     layout of dV += p^T.dO and dK += ds^T.q.  At D > 64 it walks each q
-//     tile in halves of 32 columns, and reloads K and V fragments from
-//     shared memory, to keep its dK/dV accumulators in registers.
+//     layout of dV += p^T.dO and dK += ds^T.q.
+//   * At D > 64 the two backward kernels walk each streamed tile in halves
+//     of 32 rows, and reload their own tiles' fragments from shared memory,
+//     to keep their accumulators (dq; dK and dV) in registers.
 // Not yet: wgmma, TMA, warp specialisation, persistent blocks.
 //
-// Design of the FMA kernels (f32, and dq in both dtypes).  Products as f32
-// FMA loops on CUDA cores from shared-memory tiles: each K/V (or Q/dO) tile is
-// loaded once per block and reused by all 64 rows of the block's tile; each of
-// 256 threads keeps a 4 x 4 patch of the score tile and 4 rows of the output in
-// registers, so every shared-memory load feeds 4 FMAs or more.  The tensor
+// Design of the FMA kernels (f32).  Products as f32 FMA loops on CUDA cores
+// from shared-memory tiles: each K/V (or Q/dO) tile is loaded once per block
+// and reused by all 64 rows of the block's tile; each of 256 threads keeps a
+// 4 x 4 patch of the score tile and 4 rows of the output in registers, so
+// every shared-memory load feeds 4 FMAs or more.  The tensor
 // cores have no f32 x f32 product short of TF32, which would change f32
 // results, so f32 inputs stay here.
 
@@ -86,41 +91,24 @@ constexpr float NEG_INF = -1e30f;
 
 static_assert(BQ == 64 && BK == 64, "the thread mapping assumes 64 x 64 tiles");
 
-template <typename T> __device__ __forceinline__ float to_f(T x);
-template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as astype
-}
-
-// x rounded to T and widened back: the operand cast before a product
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f<T>(from_f<T>(x));
-}
-
 // Rows [r0, r0 + 64) of one head's (S, D) matrix into dst[d * LD + r] (f32,
 // transposed); rows >= S load as 0.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile_t(float* dst, const T* src, size_t base,
+template <int D>
+__device__ __forceinline__ void load_tile_t(float* dst, const float* src, size_t base,
                                             int r0, int S, int HD) {
   for (int i = threadIdx.x; i < 64 * D; i += NT) {
     const int r = i / D, d = i % D, s = r0 + r;
-    dst[d * LD + r] = s < S ? to_f<T>(src[base + (size_t)s * HD + d]) : 0.f;
+    dst[d * LD + r] = s < S ? src[base + (size_t)s * HD + d] : 0.f;
   }
 }
 
 // The same rows into dst[r * D + d] (f32, row-major).
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, size_t base,
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* src, size_t base,
                                           int r0, int S, int HD) {
   for (int i = threadIdx.x; i < 64 * D; i += NT) {
     const int r = i / D, d = i % D, s = r0 + r;
-    dst[r * D + d] = s < S ? to_f<T>(src[base + (size_t)s * HD + d]) : 0.f;
+    dst[r * D + d] = s < S ? src[base + (size_t)s * HD + d] : 0.f;
   }
 }
 
@@ -137,10 +125,11 @@ __device__ __forceinline__ float row_sum16(float x) {
 // ---------------------------------------------------------------- forward --
 // grid (nq, B*H); thread (tr, tc) owns q rows tr*4 + i and key columns
 // tc + 16*j of the score tile, and output columns tc + 16*dc.
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT)
-fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-           T* __restrict__ o, float* __restrict__ lse, int S, int H, float scale, int causal) {
+fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+           const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+           int S, int H, float scale, int causal) {
   constexpr int DC = D / 16;
   extern __shared__ float4 smem4[];
   float* qT = reinterpret_cast<float*>(smem4);  // D x LD
@@ -156,7 +145,7 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;
   const int q0 = qi * BQ;
 
-  load_tile_t<T, D>(qT, q, base, q0, S, HD);
+  load_tile_t<D>(qT, q, base, q0, S, HD);
 
   float m[4], l[4], acc[4][DC];
 #pragma unroll
@@ -171,8 +160,8 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   const int kend = causal ? min(S, q0 + BQ) : S;
   for (int k0 = 0; k0 < kend; k0 += BK) {
     __syncthreads();  // the previous tile's readers are done
-    load_tile_t<T, D>(kT, k, base, k0, S, HD);
-    load_tile<T, D>(vs, v, base, k0, S, HD);
+    load_tile_t<D>(kT, k, base, k0, S, HD);
+    load_tile<D>(vs, v, base, k0, S, HD);
     __syncthreads();
 
     float s[4][4];
@@ -223,8 +212,7 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       *reinterpret_cast<float4*>(&pT[(tc + 16 * j) * LD + tr * 4]) =
-          make_float4(round_to<T>(s[0][j]), round_to<T>(s[1][j]),
-                      round_to<T>(s[2][j]), round_to<T>(s[3][j]));
+          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
     }
     __syncthreads();
 
@@ -249,7 +237,7 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
       const float lf = fmaxf(l[i], 1e-30f);
 #pragma unroll
       for (int dc = 0; dc < DC; ++dc)
-        o[base + (size_t)row * HD + tc + 16 * dc] = from_f<T>(acc[i][dc] / lf);
+        o[base + (size_t)row * HD + tc + 16 * dc] = acc[i][dc] / lf;
       if (tc == 0) lse[(size_t)bh * S + row] = m[i] + logf(lf);
     }
   }
@@ -257,11 +245,12 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
 
 // -------------------------------------------------------------------- dq --
 // grid (nq, B*H); the thread mapping of the forward.
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT)
-bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-              const T* __restrict__ g, const float* __restrict__ lse,
-              const float* __restrict__ delta, T* __restrict__ dq,
+bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, const float* __restrict__ g,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              float* __restrict__ dq,
               int S, int H, float scale, int causal) {
   constexpr int DC = D / 16;
   extern __shared__ float4 smem4[];
@@ -279,8 +268,8 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;
   const int q0 = qi * BQ;
 
-  load_tile_t<T, D>(qT, q, base, q0, S, HD);
-  load_tile_t<T, D>(gT, g, base, q0, S, HD);
+  load_tile_t<D>(qT, q, base, q0, S, HD);
+  load_tile_t<D>(gT, g, base, q0, S, HD);
   float lse_r[4], delta_r[4], acc[4][DC];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -294,8 +283,8 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   const int kend = causal ? min(S, q0 + BQ) : S;
   for (int k0 = 0; k0 < kend; k0 += BK) {
     __syncthreads();
-    load_tile_t<T, D>(kT, k, base, k0, S, HD);
-    load_tile_t<T, D>(vT, v, base, k0, S, HD);
+    load_tile_t<D>(kT, k, base, k0, S, HD);
+    load_tile_t<D>(vT, v, base, k0, S, HD);
     __syncthreads();
 
     float s[4][4], dp[4][4];
@@ -336,7 +325,7 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
         const bool ok = row < S && col < S && (!causal || row >= col);
         // normalized probabilities from the saved logsumexp; masked entries are 0
         const float p = ok ? expf(s[i][j] * scale - lse_r[i]) : 0.f;
-        ds[i] = round_to<T>(p * (dp[i][j] - delta_r[i]) * scale);
+        ds[i] = p * (dp[i][j] - delta_r[i]) * scale;
       }
       *reinterpret_cast<float4*>(&dsT[(tc + 16 * j) * LD + tr * 4]) =
           make_float4(ds[0], ds[1], ds[2], ds[3]);
@@ -363,7 +352,7 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
     if (row < S) {
 #pragma unroll
       for (int dc = 0; dc < DC; ++dc)
-        dq[base + (size_t)row * HD + tc + 16 * dc] = from_f<T>(acc[i][dc]);
+        dq[base + (size_t)row * HD + tc + 16 * dc] = acc[i][dc];
     }
   }
 }
@@ -372,11 +361,12 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
 // grid (nk, B*H); thread (a, bq) owns key rows a*4 + i and query columns
 // bq + 16*j of the transposed score tile, and gradient columns bq + 16*dc.
 // dk and dv accumulate in f32 registers over the q tiles and are written once.
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT)
-bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                const T* __restrict__ g, const float* __restrict__ lse,
-                const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ g,
+                const float* __restrict__ lse, const float* __restrict__ delta,
+                float* __restrict__ dk, float* __restrict__ dv,
                 int S, int H, float scale, int causal) {
   constexpr int DC = D / 16;
   extern __shared__ float4 smem4[];
@@ -384,8 +374,8 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   float* vT = kT + D * LD;                       // D x LD
   float* qT = vT + D * LD;                       // D x LD
   float* gT = qT + D * LD;                       // D x LD
-  float* ps = gT + D * LD;                       // BQ x LD: p (rounded) by q row
-  float* dss = ps + BQ * LD;                     // BQ x LD: ds (rounded) by q row
+  float* ps = gT + D * LD;                       // BQ x LD: p by q row
+  float* dss = ps + BQ * LD;                     // BQ x LD: ds by q row
   float* lse_s = dss + BQ * LD;                  // BQ
   float* delta_s = lse_s + BQ;                   // BQ
 
@@ -396,8 +386,8 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   const int a = threadIdx.x / 16, bq = threadIdx.x % 16;
   const int k0 = kb * BK;
 
-  load_tile_t<T, D>(kT, k, base, k0, S, HD);
-  load_tile_t<T, D>(vT, v, base, k0, S, HD);
+  load_tile_t<D>(kT, k, base, k0, S, HD);
+  load_tile_t<D>(vT, v, base, k0, S, HD);
   float dk_acc[4][DC], dv_acc[4][DC];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -408,8 +398,8 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   const int qstart = causal ? (k0 / BQ) * BQ : 0;
   for (int q0 = qstart; q0 < S; q0 += BQ) {
     __syncthreads();
-    load_tile_t<T, D>(qT, q, base, q0, S, HD);
-    load_tile_t<T, D>(gT, g, base, q0, S, HD);
+    load_tile_t<D>(qT, q, base, q0, S, HD);
+    load_tile_t<D>(gT, g, base, q0, S, HD);
     if (threadIdx.x < BQ) {
       const int row = q0 + threadIdx.x;
       lse_s[threadIdx.x] = row < S ? lse[(size_t)bh * S + row] : 0.f;
@@ -454,8 +444,8 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
         const int col = k0 + a * 4 + i;
         const bool ok = row < S && col < S && (!causal || row >= col);
         const float p = ok ? expf(s[i][j] * scale - lse_s[rl]) : 0.f;
-        pr[i] = round_to<T>(p);
-        dr[i] = round_to<T>(p * (dp[i][j] - delta_s[rl]) * scale);
+        pr[i] = p;
+        dr[i] = p * (dp[i][j] - delta_s[rl]) * scale;
       }
       *reinterpret_cast<float4*>(&ps[rl * LD + a * 4]) = make_float4(pr[0], pr[1], pr[2], pr[3]);
       *reinterpret_cast<float4*>(&dss[rl * LD + a * 4]) = make_float4(dr[0], dr[1], dr[2], dr[3]);
@@ -489,8 +479,8 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
 #pragma unroll
       for (int dc = 0; dc < DC; ++dc) {
         const size_t off = base + (size_t)row * HD + bq + 16 * dc;
-        dk[off] = from_f<T>(dk_acc[i][dc]);
-        dv[off] = from_f<T>(dv_acc[i][dc]);
+        dk[off] = dk_acc[i][dc];
+        dv[off] = dv_acc[i][dc];
       }
     }
   }
@@ -885,52 +875,219 @@ dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// ------------------------------------------------------------ dq, bf16 (K2) --
+// grid (nq, B*H), 128 threads; warp w owns q rows q0 + 16w .. q0 + 16w + 15,
+// lane (g, t) rows g and g + 8 of them, as in the forward.  Per k tile:
+// s = q K^T and dp = dO V^T, then p and ds in the score registers, then
+// dq += bf16(ds) K with ds packed straight into the A operand.  Shared
+// memory: q and dO (64 x D each, read once), then two stages of K and V.
+// At D > 64 the q and dO fragments are re-read from shared memory and each
+// K tile is walked in halves of 32 keys, to keep the dq accumulator in
+// registers.
+template <int D>
+__global__ void __launch_bounds__(NTC)
+dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+              const bf16* __restrict__ v, const bf16* __restrict__ g,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              bf16* __restrict__ dq, int S, int H, float scale, int causal) {
+  constexpr int KS = D / 16, ND = D / 8, TE = TILE_ELEMS<D>;
+  constexpr bool QG_REGS = D <= 64;      // q and dO fragments held in registers
+  constexpr int KW = D <= 64 ? 64 : 32;  // keys a warp takes at a time
+  constexpr int NB = KW / 8;
+  extern __shared__ float4 smem4[];
+  bf16* qs = reinterpret_cast<bf16*>(smem4);
+  bf16* gs = qs + TE;
+  bf16* ks = gs + TE;      // 2 stages
+  bf16* vs = ks + 2 * TE;  // 2 stages
+
+  const int nq = (S + BQ - 1) / BQ;
+  const int qi = nq - 1 - (int)blockIdx.x;  // heaviest causal tiles first
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int HD = H * D;
+  const size_t base = (size_t)b * S * HD + (size_t)h * D;
+  const int q0 = qi * BQ;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gq = lane >> 2, t = lane & 3;
+  const int row0 = q0 + warp * 16 + gq;  // this lane's rows: row0 and row0 + 8
+
+  // k tiles wholly above the diagonal contribute nothing: stop before them
+  const int kend = causal ? min(S, q0 + BQ) : S;
+  const int ntiles = (kend + BK - 1) / BK;
+
+  tile_async<D>(qs, q, base, q0, S, HD);
+  tile_async<D>(gs, g, base, q0, S, HD);
+  cp_async_commit();
+  tile_async<D>(ks, k, base, 0, S, HD);
+  tile_async<D>(vs, v, base, 0, S, HD);
+  cp_async_commit();
+
+  // this lane's rows' logsumexp (in log2 units) and delta; rows >= S are never
+  // written, and their zero q and dO rows give ds = 0
+  const float scale2 = scale * LOG2E;
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + r * 8;
+    lse2[r] = row < S ? lse[(size_t)bh * S + row] * LOG2E : 0.f;
+    dl[r] = row < S ? delta[(size_t)bh * S + row] : 0.f;
+  }
+
+  uint32_t qf[KS][4], gf[KS][4];
+  float dqa[ND][4];
+#pragma unroll
+  for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dqa[nd][e] = 0.f;
+
+  for (int j = 0; j < ntiles; ++j) {
+    const int k0 = j * BK;
+    if (j + 1 < ntiles) {  // the next tile is in flight while this one is computed
+      const int st = (j + 1) & 1;
+      tile_async<D>(ks + st * TE, k, base, k0 + BK, S, HD);
+      tile_async<D>(vs + st * TE, v, base, k0 + BK, S, HD);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // everything but the group just committed has landed
+    __syncthreads();
+    if (QG_REGS && j == 0) {
+      a_frags<D>(qf, qs, warp * 16);
+      a_frags<D>(gf, gs, warp * 16);
+    }
+    const bf16* kt = ks + (j & 1) * TE;
+    const bf16* vt = vs + (j & 1) * TE;
+    const bool masked = (causal && k0 + BK - 1 > q0) || k0 + BK > S;
+
+#pragma unroll
+    for (int ko = 0; ko < BK; ko += KW) {
+      if (!QG_REGS) a_frags<D>(qf, qs, warp * 16);
+
+      // s = q K^T: 16 rows x KW keys per warp
+      float p[NB][4];
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) p[nb][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+        for (int nb2 = 0; nb2 < NB / 2; ++nb2) {
+          uint32_t bk[4];
+          bt_frags<D>(bk, kt, ko + nb2 * 16, kk);
+          mma(p[2 * nb2], qf[kk], bk[0], bk[1]);
+          mma(p[2 * nb2 + 1], qf[kk], bk[2], bk[3]);
+        }
+
+      // p = exp(scale s - lse[q]), normalised by the saved logsumexp; masked
+      // entries (diagonal and ragged tiles only) are exactly 0
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = exp2_approx(p[nb][e] * scale2 - lse2[e >> 1]);
+          if (masked) {
+            const int row = row0 + (e >> 1) * 8, col = k0 + ko + nb * 8 + 2 * t + (e & 1);
+            if (col >= S || (causal && col > row)) x = 0.f;
+          }
+          p[nb][e] = x;
+        }
+
+      // dp = dO V^T
+      if (!QG_REGS) a_frags<D>(gf, gs, warp * 16);
+      float dp[NB][4];
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dp[nb][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+        for (int nb2 = 0; nb2 < NB / 2; ++nb2) {
+          uint32_t bv[4];
+          bt_frags<D>(bv, vt, ko + nb2 * 16, kk);
+          mma(dp[2 * nb2], gf[kk], bv[0], bv[1]);
+          mma(dp[2 * nb2 + 1], gf[kk], bv[2], bv[3]);
+        }
+
+      // ds = p (dp - delta[q]) scale, from the unrounded p
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dp[nb][e] = p[nb][e] * (dp[nb][e] - dl[e >> 1]) * scale;
+
+      // dq += bf16(ds) K
+#pragma unroll
+      for (int kq = 0; kq < NB / 2; ++kq) {
+        uint32_t da[4];
+        a_from_c(da, dp[2 * kq], dp[2 * kq + 1]);
+#pragma unroll
+        for (int nd2 = 0; nd2 < ND / 2; ++nd2) {
+          uint32_t bk[4];
+          b_frags<D>(bk, kt, ko + kq * 16, nd2);
+          mma(dqa[2 * nd2], da, bk[0], bk[1]);
+          mma(dqa[2 * nd2 + 1], da, bk[2], bk[3]);
+        }
+      }
+    }
+    __syncthreads();  // this stage's readers are done before it is refilled
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + r * 8;
+    if (row < S) {
+#pragma unroll
+      for (int nd = 0; nd < ND; ++nd)
+        *reinterpret_cast<uint32_t*>(dq + base + (size_t)row * HD + nd * 8 + 2 * t) =
+            pack(dqa[nd][2 * r], dqa[nd][2 * r + 1]);
+    }
+  }
+}
+
 // ------------------------------------------------------------- launchers --
 
-template <typename T, int D>
+template <int D>
 int fwd_launch(const void* q, const void* k, const void* v, void* o, float* lse,
                int B, int S, int H, float scale, int causal, cudaStream_t stream) {
   const size_t smem = (size_t)(2 * D * LD + BK * D + BK * LD) * sizeof(float);
-  auto kernel = fwd_kernel<T, D>;
+  auto kernel = fwd_kernel<D>;
   cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((S + BQ - 1) / BQ, B * H);
   kernel<<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, S, H, scale, causal);
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), lse, S, H, scale, causal);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 int dq_launch(const void* q, const void* k, const void* v, const void* g,
               const float* lse, const float* delta, void* dq,
               int B, int S, int H, float scale, int causal, cudaStream_t stream) {
   const size_t smem = (size_t)(4 * D * LD + BK * LD) * sizeof(float);
-  auto kernel = bwd_dq_kernel<T, D>;
+  auto kernel = bwd_dq_kernel<D>;
   cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((S + BQ - 1) / BQ, B * H);
   kernel<<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(g), lse, delta, static_cast<T*>(dq), S, H, scale, causal);
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(g), lse, delta, static_cast<float*>(dq), S, H, scale, causal);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 int dkdv_launch(const void* q, const void* k, const void* v, const void* g,
                 const float* lse, const float* delta, void* dk, void* dv,
                 int B, int S, int H, float scale, int causal, cudaStream_t stream) {
   const size_t smem = (size_t)(4 * D * LD + 2 * BQ * LD + 2 * BQ) * sizeof(float);
-  auto kernel = bwd_dkdv_kernel<T, D>;
+  auto kernel = bwd_dkdv_kernel<D>;
   cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((S + BK - 1) / BK, B * H);
   kernel<<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(g), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(g), lse, delta, static_cast<float*>(dk), static_cast<float*>(dv),
       S, H, scale, causal);
   return (int)cudaGetLastError();
 }
@@ -947,6 +1104,22 @@ int fwd_mma_launch(const void* q, const void* k, const void* v, void* o, float* 
   kernel<<<grid, NTC, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(o), lse, S, H, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int dq_mma_launch(const void* q, const void* k, const void* v, const void* g,
+                  const float* lse, const float* delta, void* dq,
+                  int B, int S, int H, float scale, int causal, cudaStream_t stream) {
+  const size_t smem = (size_t)6 * TILE_ELEMS<D> * sizeof(bf16);  // q, dO, 2 x (K, V)
+  auto kernel = dq_mma_kernel<D>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((S + BQ - 1) / BQ, B * H);
+  kernel<<<grid, NTC, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(g), lse, delta, static_cast<bf16*>(dq), S, H, scale, causal);
   return (int)cudaGetLastError();
 }
 
@@ -981,28 +1154,31 @@ constexpr int kUnsupported = -1;
     default: return kUnsupported;          \
   }
 
-template <typename T>
 int fwd_d(const void* q, const void* k, const void* v, void* o, float* lse,
           int B, int S, int H, int D, float scale, int causal, cudaStream_t st) {
-  GST_DISPATCH_D(D, (fwd_launch<T, Dc>(q, k, v, o, lse, B, S, H, scale, causal, st)))
+  GST_DISPATCH_D(D, (fwd_launch<Dc>(q, k, v, o, lse, B, S, H, scale, causal, st)))
 }
 int fwd_mma_d(const void* q, const void* k, const void* v, void* o, float* lse,
               int B, int S, int H, int D, float scale, int causal, cudaStream_t st) {
   GST_DISPATCH_D(D, (fwd_mma_launch<Dc>(q, k, v, o, lse, B, S, H, scale, causal, st)))
 }
 
-template <typename T>
 int dq_d(const void* q, const void* k, const void* v, const void* g, const float* lse,
          const float* delta, void* dq, int B, int S, int H, int D, float scale, int causal,
          cudaStream_t st) {
-  GST_DISPATCH_D(D, (dq_launch<T, Dc>(q, k, v, g, lse, delta, dq, B, S, H, scale, causal, st)))
+  GST_DISPATCH_D(D, (dq_launch<Dc>(q, k, v, g, lse, delta, dq, B, S, H, scale, causal, st)))
+}
+int dq_mma_d(const void* q, const void* k, const void* v, const void* g, const float* lse,
+             const float* delta, void* dq, int B, int S, int H, int D, float scale, int causal,
+             cudaStream_t st) {
+  GST_DISPATCH_D(D, (dq_mma_launch<Dc>(q, k, v, g, lse, delta, dq, B, S, H, scale, causal,
+                                       st)))
 }
 
-template <typename T>
 int dkdv_d(const void* q, const void* k, const void* v, const void* g, const float* lse,
            const float* delta, void* dk, void* dv, int B, int S, int H, int D, float scale,
            int causal, cudaStream_t st) {
-  GST_DISPATCH_D(D, (dkdv_launch<T, Dc>(q, k, v, g, lse, delta, dk, dv, B, S, H, scale,
+  GST_DISPATCH_D(D, (dkdv_launch<Dc>(q, k, v, g, lse, delta, dk, dv, B, S, H, scale,
                                         causal, st)))
 }
 int dkdv_mma_d(const void* q, const void* k, const void* v, const void* g, const float* lse,
@@ -1017,7 +1193,7 @@ int dkdv_mma_d(const void* q, const void* k, const void* v, const void* g, const
 // ------------------------------------------------------- plain C interface --
 // Each returns 0 on success, a cudaError_t code from the launch, or -1 for an
 // unsupported head dim.  is_bf16: 1 for bfloat16 tensors, 0 for float32; the
-// dtype picks the kernel (bf16: tensor cores for the forward and dk/dv).
+// dtype picks the kernel (bf16: tensor cores, f32: FMA).
 
 extern "C" {
 
@@ -1026,7 +1202,7 @@ int gst_flash_fwd(const void* q, const void* k, const void* v, void* o, float* l
                   void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return is_bf16 ? fwd_mma_d(q, k, v, o, lse, B, S, H, D, scale, causal, st)
-                 : fwd_d<float>(q, k, v, o, lse, B, S, H, D, scale, causal, st);
+                 : fwd_d(q, k, v, o, lse, B, S, H, D, scale, causal, st);
 }
 
 int gst_flash_bwd_dq(const void* q, const void* k, const void* v, const void* g,
@@ -1034,9 +1210,8 @@ int gst_flash_bwd_dq(const void* q, const void* k, const void* v, const void* g,
                      int B, int S, int H, int D, float scale, int causal, int is_bf16,
                      void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16
-             ? dq_d<__nv_bfloat16>(q, k, v, g, lse, delta, dq, B, S, H, D, scale, causal, st)
-             : dq_d<float>(q, k, v, g, lse, delta, dq, B, S, H, D, scale, causal, st);
+  return is_bf16 ? dq_mma_d(q, k, v, g, lse, delta, dq, B, S, H, D, scale, causal, st)
+                 : dq_d(q, k, v, g, lse, delta, dq, B, S, H, D, scale, causal, st);
 }
 
 int gst_flash_bwd_dkdv(const void* q, const void* k, const void* v, const void* g,
@@ -1045,7 +1220,7 @@ int gst_flash_bwd_dkdv(const void* q, const void* k, const void* v, const void* 
                        void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return is_bf16 ? dkdv_mma_d(q, k, v, g, lse, delta, dk, dv, B, S, H, D, scale, causal, st)
-                 : dkdv_d<float>(q, k, v, g, lse, delta, dk, dv, B, S, H, D, scale, causal,
+                 : dkdv_d(q, k, v, g, lse, delta, dk, dv, B, S, H, D, scale, causal,
                                  st);
 }
 

@@ -8,13 +8,13 @@ version for CPU tensors:
 wrapper                 CUDA kernel (bf16 / f32)                    replaces (Pallas TPU kernel)
 ======================  ==========================================  ==============================
 :func:`flash_fwd`       ``fwd_mma_kernel`` / ``fwd_kernel``         ``_fwd_kernel`` (:98-152)
-:func:`flash_bwd_dq`    ``bwd_dq_kernel`` (both)                    ``_bwd_dq_kernel`` (:155-199)
+:func:`flash_bwd_dq`    ``dq_mma_kernel`` / ``bwd_dq_kernel``       ``_bwd_dq_kernel`` (:155-199)
 :func:`flash_bwd_dkdv`  ``dkdv_mma_kernel`` / ``bwd_dkdv_kernel``   ``_bwd_dkdv_kernel`` (:202-252)
 ======================  ==========================================  ==============================
 
-bf16 inputs (the model's dtype) run the forward and dk/dv on the tensor
-cores (``mma.sync`` fed by ``cp.async``); f32 inputs run FMA kernels, which
-keep full f32 products.  The dtype picks the kernel; neither is a fallback.
+bf16 inputs (the model's dtype) run all three on the tensor cores
+(``mma.sync`` fed by ``cp.async``); f32 inputs run FMA kernels, which keep
+full f32 products.  The dtype picks the kernel; neither is a fallback.
 
 The kernels live in ``csrc/flash_attention.cu`` (its header comment gives
 each kernel's bound and design), are built by ``nvcc`` at first use
@@ -104,7 +104,8 @@ def _check_qkv(q, k, v) -> None:
 
 def _check_cuda(tensors, rows=()) -> None:
     """What the kernels take: contiguous tensors on one device, ``tensors``
-    of one supported dtype, ``rows`` (lse, delta) in f32."""
+    of one supported dtype and 16-byte aligned, ``rows`` (lse, delta) in
+    f32."""
     dev = tensors[0].device
     for t in (*tensors, *rows):
         if t.device != dev:
@@ -116,6 +117,7 @@ def _check_cuda(tensors, rows=()) -> None:
         raise TypeError(f"dtype {dtype} not supported; use one of {DTYPES}")
     if any(t.dtype != dtype for t in tensors):
         raise TypeError(f"q, k, v (and dO) must share one dtype, got {[t.dtype for t in tensors]}")
+    _check_aligned(tensors)
 
 
 def _check_aligned(tensors) -> None:
@@ -215,7 +217,6 @@ def flash_fwd(q, k, v, *, causal: bool = True, block_k: Optional[int] = None):
         return flash_fwd_plain(q, k, v, causal, _block(s, block_k))
     _check_cuda_block(block_k)
     _check_cuda((q, k, v))
-    _check_aligned((q, k, v))
     out = torch.empty_like(q)
     lse = torch.empty((b * h, s), dtype=torch.float32, device=q.device)
     if out.numel():
@@ -314,7 +315,6 @@ def flash_bwd_dkdv(q, k, v, g, lse, delta, *, causal: bool = True,
         return flash_bwd_dkdv_plain(q, k, v, g, lse, delta, causal, _block(s, block_q))
     _check_cuda_block(block_q)
     _check_cuda((q, k, v, g), (lse, delta))
-    _check_aligned((q, k, v, g))
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     if dk.numel():

@@ -14,7 +14,7 @@ order at small shapes; they say nothing of speed.
 
 Tolerances are ``chip_smoke.py``'s for the card (the kernels' products run
 in another order than the plain versions' matmuls): 2e-2 absolute on the
-output, 1e-3 on lse, 2e-2 of the largest entry on dk and dv.
+output, 1e-3 on lse, 2e-2 of the largest entry on dq, dk and dv.
 """
 
 import ctypes
@@ -45,7 +45,7 @@ CASES = [
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
     """The kernels built for the host: a ctypes library with
-    ``emu_flash_fwd`` and ``emu_flash_bwd_dkdv``."""
+    ``emu_flash_fwd``, ``emu_flash_bwd_dkdv`` and ``emu_flash_bwd_dq``."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no g++ to build the emulated kernels")
@@ -67,6 +67,7 @@ def emulated(tmp_path_factory):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     emu.emu_flash_fwd.argtypes = [p] * 5 + [i, i, i, i, f, i]
     emu.emu_flash_bwd_dkdv.argtypes = [p] * 8 + [i, i, i, i, f, i]
+    emu.emu_flash_bwd_dq.argtypes = [p] * 7 + [i, i, i, i, f, i]
     return emu
 
 
@@ -96,3 +97,24 @@ def test_emulated_tensor_core_kernels_match_plain(emulated, shape, causal):
     for got, ref in ((dk, dk_p), (dv, dv_p)):
         rel = (got.float() - ref.float()).abs().max().item() / ref.float().abs().max().item()
         assert rel < 2e-2, rel
+
+
+@pytest.mark.parametrize("shape,causal", CASES)
+def test_emulated_dq_kernel_matches_plain(emulated, shape, causal):
+    """``dq_mma_kernel`` (bf16) against ``flash_bwd_dq_plain`` on the same
+    inputs and the plain forward's lse and delta, as on the card: within
+    2e-2 of the plain version's largest entry (``chip_smoke.py``'s
+    ``GRAD_TOL``; ds is rounded to bf16 at the same point in both, the
+    products' sums run in another order)."""
+    b, s, h, d = shape
+    gen = torch.Generator().manual_seed(s + d)
+    q, k, v, g = (torch.randn(shape, generator=gen).to(torch.bfloat16) for _ in range(4))
+    out_p, lse_p = fa.flash_fwd_plain(q, k, v, causal)
+    delta = fa.attention_delta(out_p, g)
+    dq = torch.empty_like(q)
+    assert emulated.emu_flash_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse_p.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), b, s, h, d, d ** -0.5, int(causal)) == 0
+    dq_p = fa.flash_bwd_dq_plain(q, k, v, g, lse_p, delta, causal)
+    rel = (dq.float() - dq_p.float()).abs().max().item() / dq_p.float().abs().max().item()
+    assert rel < 2e-2, rel

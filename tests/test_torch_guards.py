@@ -141,12 +141,14 @@ def test_failed_kernel_build_raises(monkeypatch, tmp_path):
 def test_alignment_check_and_compiled_tile():
     """The tensor-core kernels copy 16-byte vectors, so the CUDA path
     refuses a tensor that starts off a 16-byte boundary before any launch
-    (the check reads only ``data_ptr``, so it runs here on CPU views).  The
-    plain path on CPU tensors is unaffected: a misaligned view gives what
-    an aligned copy gives.  And the CUDA path still refuses a block other
-    than the compiled tile."""
+    (the check reads only ``data_ptr``, so it runs here on CPU views).  It
+    is part of ``_check_cuda``, which every wrapper's CUDA path runs, dq's
+    included.  The plain path on CPU tensors is unaffected: a misaligned
+    view gives what an aligned copy gives.  And the CUDA path still refuses
+    a block other than the compiled tile."""
     from gpuschedule_tpu_torch.ops.flash_attention import (
-        TILE, _check_aligned, _check_cuda_block, attention_delta, flash_bwd_dkdv, flash_fwd,
+        TILE, _check_aligned, _check_cuda, _check_cuda_block, attention_delta, flash_bwd_dkdv,
+        flash_bwd_dq, flash_fwd,
     )
 
     n = 1 * 40 * 2 * 32
@@ -159,6 +161,9 @@ def test_alignment_check_and_compiled_tile():
 
     qa = q.clone()
     assert qa.data_ptr() % 16 == 0
+    rows = torch.zeros(2, 40)
+    with pytest.raises(ValueError, match="16-byte"):
+        _check_cuda((qa, qa, qa, q), (rows, rows))  # a misaligned dO
     out, lse = flash_fwd(q, q, q, causal=True)
     out_a, lse_a = flash_fwd(qa, qa, qa, causal=True)
     assert torch.equal(out, out_a) and torch.equal(lse, lse_a)
@@ -166,6 +171,8 @@ def test_alignment_check_and_compiled_tile():
     dk, dv = flash_bwd_dkdv(q, q, q, q, lse, delta, causal=True)
     dk_a, dv_a = flash_bwd_dkdv(qa, qa, qa, qa, lse, delta, causal=True)
     assert torch.equal(dk, dk_a) and torch.equal(dv, dv_a)
+    assert torch.equal(flash_bwd_dq(q, q, q, q, lse, delta, causal=True),
+                       flash_bwd_dq(qa, qa, qa, qa, lse, delta, causal=True))
 
     _check_cuda_block(TILE)
     for block in (32, 2 * TILE):
