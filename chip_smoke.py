@@ -10,7 +10,9 @@ Phases, each fatal on failure (exit code 1, no result line):
    registers and spills from ``-Xptxas -v`` (the bf16 tensor-core kernels
    must not spill at D = 32 and 64), and the count of ``HMMA`` instructions
    in each kernel's SASS from ``cuobjdump`` (the bf16 forward, dq and dk/dv
-   kernels must have some);
+   kernels must have some); the same for the probe kernels, with their
+   static and dynamic shared memory (neither may spill, and the xᵀx kernel
+   must have ``HMMA``);
 3. parity — each CUDA kernel (forward, dq, dk/dv) against its plain PyTorch
    version on the same inputs: transformer-long's attention shape
    (B=2, S=4096, H=8, D=32, bf16, causal) and ragged shapes in bf16 (the
@@ -29,14 +31,17 @@ Phases, each fatal on failure (exit code 1, no result line):
    K3 >= 4 per step: 4 layers, remat recomputes each forward);
 6. dense train step — transformer-large at b16 x S512, no kernel of ours;
 7. probe parity — K5a (copy) and K5b (rows 0-7 of each tile's xᵀx) in both
-   launch forms against their plain versions at n = 64, 4096 and 37 tiles
-   of (8, 128) bf16: K5a exactly, K5b within one bf16 ulp;
+   launch forms against their plain versions at n = 64, 4096, 37 and
+   STAGES + 1 tiles of (8, 128) bf16 (STAGES: the kernels' ring depth, as
+   the built library reports it): K5a exactly, K5b within one bf16 ulp;
 8. probe sweeps — the four sweeps of the overhead probe
    (``gpuschedule_tpu_torch.tools.overhead_probe``), one JSON line per
    point and per slope; the launch counters must show both kernels; then
-   the kernels at n = 4096 in both forms beside their plain versions,
-   ``Tensor.copy_`` and ``torch.bmm`` (yardsticks the port never calls) and
-   the bound;
+   the kernels at n = 4096 in both forms (CUDA events, the device time per
+   launch from a profiler window, and the wrapper's host µs per call over
+   1,000 unsynchronised calls: ``gpuschedule_tpu_torch/tools/probe_costs.py``)
+   beside their plain versions, ``Tensor.copy_`` and ``torch.bmm``
+   (yardsticks the port never calls) and the bound;
 9. profile — ``profile_model("transformer-large", batch_size=16,
    seq_len=512)`` over ks 1-64 into a ``CurveCache``, which must reload
    with all seven ks, finite non-negative theta and a measured k = 1 point
@@ -146,15 +151,8 @@ def probe_cost(n, block, kernel):
     return (0 if kernel == "probe_copy" else 2 * 8 * 8 * block * n), nbytes
 
 
-def bf16_ulps(torch, a, b):
-    """Largest |a - b| over the bf16 spacing at max(|a|, |b|), elementwise."""
-    a, b = a.float(), b.float()
-    _, e = torch.frexp(torch.maximum(a.abs(), b.abs()))
-    return ((a - b).abs() / torch.ldexp(torch.ones_like(a), e - 8)).max().item()
-
-
 def ptxas_report(log_text: str) -> dict:
-    """{mangled kernel name: {"registers", "spill_stores", "spill_loads"}}
+    """{mangled kernel name: {"registers", "spill_stores", "spill_loads", "static_smem"}}
     from nvcc's ``-Xptxas -v`` output."""
     out: dict = {}
     name = None
@@ -172,6 +170,9 @@ def ptxas_report(log_text: str) -> dict:
         m = re.search(r"Used (\d+) registers", line)
         if m:
             out[name]["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            out[name]["static_smem"] = int(m.group(1))
     return out
 
 
@@ -213,29 +214,6 @@ def hmma_counts(lib_path: str, tool: str) -> dict:
         elif name is not None and "HMMA" in line:
             counts[name] += 1
     return counts
-
-
-def device_ms_per_launch(torch, fn, kernel: str, launches: int = 5):
-    """(ms per launch, kernel names seen) of the device kernels whose name
-    holds ``kernel`` over ``launches`` calls of ``fn`` in a
-    ``torch.profiler`` window; ms is None if the profiler saw no such kernel."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(launches):
-            fn()
-        torch.cuda.synchronize()
-    names, total = set(), 0.0
-    for evt in prof.events():
-        if evt.device_type == DeviceType.CUDA and not getattr(evt, "is_user_annotation", False):
-            names.add(evt.name)
-            if kernel in evt.name:
-                total += evt.time_range.elapsed_us() / 1e3
-    hits = [n for n in names if kernel in n]
-    return (total / launches if hits else None), sorted(names)
 
 
 def profile_steps(torch, trainer, state, tokens, steps: int = 2) -> dict:
@@ -288,7 +266,7 @@ def probe_parity(torch, dev, sizes) -> dict:
             torch.cuda.synchronize()
             e_c = (c.float() - ref_c.float()).abs().max().item()
             e_m = (m.float() - ref_m.float()).abs().max().item()
-            ulps = bf16_ulps(torch, m, ref_m)
+            ulps = op.bf16_ulps(m, ref_m)
             log(f"probe parity n={n} parallel={parallel}: copy {e_c:.3e} "
                 f"(equal {torch.equal(c, ref_c)}) xtx {e_m:.3e} ({ulps:.2f} bf16 ulp)")
             check(torch.equal(c, ref_c), f"the copy kernel disagrees at n={n} parallel={parallel}")
@@ -300,11 +278,13 @@ def probe_parity(torch, dev, sizes) -> dict:
 
 def probe_sweeps(torch, dev, n, ms):
     """Phase 8: the overhead probe's four sweeps (its main path, counted),
-    then each kernel at n tiles in both forms beside its plain version, the
-    library call of the same function and the bound.  Returns (launches,
-    times, bounds) by kernel."""
+    then each kernel at n tiles in both forms: CUDA-event ms, device ms per
+    launch and the wrapper's host µs per call (``tools/probe_costs.py``),
+    beside its plain version, the library call of the same function and the
+    bound.  Returns (launches, times, bounds) by kernel."""
     from gpuschedule_tpu_torch.ops import overhead_probe as op
     from gpuschedule_tpu_torch.tools import overhead_probe as probe_tool
+    from gpuschedule_tpu_torch.tools.probe_costs import probe_input, wrapper_costs
 
     op.reset_launches()                           # the probe's main path starts here
     for kernel, name, parallel in probe_tool.SWEEPS:
@@ -313,26 +293,32 @@ def probe_sweeps(torch, dev, n, ms):
     log(f"probe sweep launches: {launches}")
     check(all(launches[name] > 0 for name in PROBE_KERNELS),
           f"the probe sweeps did not run every kernel: {launches}")
-    gen = torch.Generator(device=dev).manual_seed(3)
-    x = torch.randn((n * 8, PROBE_BLOCK), generator=gen, device=dev).to(torch.bfloat16)
+    costs = wrapper_costs(n)
+    x = probe_input(n)
     xt, out = x.view(n, 8, PROBE_BLOCK), torch.empty_like(x)
-    wrappers = {"probe_copy": (op.probe_copy, op.probe_copy_plain, lambda: out.copy_(x)),
-                "probe_matmul": (op.probe_matmul, op.probe_matmul_plain,
-                                 lambda: torch.bmm(xt[:, :, :8].transpose(1, 2), xt))}
+    yardsticks = {"probe_copy": (op.probe_copy_plain, lambda: out.copy_(x)),
+                  "probe_matmul": (op.probe_matmul_plain,
+                                   lambda: torch.bmm(xt[:, :, :8].transpose(1, 2), xt))}
     times, bounds = {}, {}
-    for name, (kernel, plain, library) in wrappers.items():
+    for name, (plain, library) in yardsticks.items():
+        par, seq = costs[name, True], costs[name, False]
         times[name] = {
-            "ms": ms(lambda: kernel(x, parallel=True)),
-            "ms_sequential": ms(lambda: kernel(x, parallel=False)),
+            "ms": par["ms"], "ms_sequential": seq["ms"],
+            "device_ms": par["device_ms"], "device_ms_sequential": seq["device_ms"],
+            "host_us": par["host_us"], "host_us_sequential": seq["host_us"],
             "plain_ms": ms(lambda: plain(x)), "library_ms": ms(library),
         }
+        check(par["device_ms"] is not None and seq["device_ms"] is not None,
+              f"the profiler recorded no device time for {name}")
         flops, nbytes = probe_cost(n, PROBE_BLOCK, name)
         bounds[name] = bound(flops, nbytes, PEAK_BF16_FLOPS)
         t = times[name]
-        log(f"time {name} n={n} block={PROBE_BLOCK} bf16: {t['ms']:.5f} ms parallel, "
-            f"{t['ms_sequential']:.5f} ms sequential (plain {t['plain_ms']:.5f} ms, "
+        log(f"time {name} n={n} block={PROBE_BLOCK} bf16: {t['ms']:.5f} ms parallel "
+            f"(device {t['device_ms']:.5f} ms a launch, host {t['host_us']:.2f} us a call), "
+            f"{t['ms_sequential']:.5f} ms sequential (device {t['device_ms_sequential']:.5f} "
+            f"ms, host {t['host_us_sequential']:.2f} us); plain {t['plain_ms']:.5f} ms, "
             f"library {t['library_ms']:.5f} ms, bound {bounds[name][0]:.5f} ms by "
-            f"{bounds[name][1]}, {flops / 1e6:.1f} MFLOP, {nbytes / 1e6:.2f} MB)")
+            f"{bounds[name][1]}, {flops / 1e6:.1f} MFLOP, {nbytes / 1e6:.2f} MB")
     return launches, times, bounds
 
 
@@ -392,7 +378,7 @@ def run() -> dict:
         from gpuschedule_tpu_torch.ops import _build, dense_attention
         from gpuschedule_tpu_torch.ops import overhead_probe as op
         from gpuschedule_tpu_torch.parallel import ShardedTrainer
-        from gpuschedule_tpu_torch.profiler import time_callable, time_steps
+        from gpuschedule_tpu_torch.profiler import device_ms_per_launch, time_callable, time_steps
 
         # the module, not the op of the same name that ops/__init__ exports
         fa = importlib.import_module("gpuschedule_tpu_torch.ops.flash_attention")
@@ -445,6 +431,29 @@ def run() -> dict:
                       f"{cname} spills at D={d}: {rep}")
             if hmma is not None:
                 check((rep["hmma"] or 0) > 0, f"{cname} at D={d} has no HMMA in its SASS")
+    probe_ptxas = ptxas_report(_build.build_log("overhead_probe"))
+    probe_hmma = None if tool is None else hmma_counts(
+        str(_build.build_all()["overhead_probe"]), tool)
+    lib = op._kernels()
+    stages = lib.gst_probe_stages()  # the depth of the kernels' ring
+    for name, (cname, _) in PROBE_KERNELS.items():
+        entry = probe_ptxas.get(mangled_name(probe_ptxas, cname, PROBE_BLOCK), {})
+        n_hmma = None if probe_hmma is None else probe_hmma.get(
+            mangled_name(probe_hmma, cname, PROBE_BLOCK))
+        smem = {form: lib.gst_probe_smem(int(name == "probe_matmul"), PROBE_N, parallel)
+                for form, parallel in (("parallel", 1), ("sequential", 0))}
+        build_report[f"{cname}<{PROBE_BLOCK}>"] = {**entry, "hmma": n_hmma, "dynamic_smem": smem}
+        log(f"kernel {cname} BLOCK={PROBE_BLOCK}: {entry.get('registers')} registers, spill "
+            f"{entry.get('spill_stores')}/{entry.get('spill_loads')} bytes (stores/loads), "
+            f"{entry.get('static_smem', 0)} bytes static smem, dynamic smem {smem['parallel']} B "
+            f"a block in the parallel form and {smem['sequential']} B in the sequential one "
+            f"(STAGES = {stages}), {n_hmma} HMMA")
+        check("registers" in entry, f"ptxas reported nothing for {cname}")
+        check(entry.get("spill_stores", 0) == 0 and entry.get("spill_loads", 0) == 0,
+              f"{cname} spills: {entry}")
+    if probe_hmma is not None:
+        check((build_report[f"probe_xtx_kernel<{PROBE_BLOCK}>"]["hmma"] or 0) > 0,
+              "probe_xtx_kernel has no HMMA in its SASS")
 
     # ---------------------------------------------------------------- 3 --
     errs = {name: 0.0 for name in KERNELS}
@@ -561,7 +570,7 @@ def run() -> dict:
                      ("flash_bwd_dkdv",
                       lambda: fa.flash_bwd_dkdv(q, k, v, g, lse, delta, causal=True))):
         cname = KERNELS[name][0]
-        dev_ms, _ = device_ms_per_launch(torch, fn, cname)
+        dev_ms, _ = device_ms_per_launch(fn, cname)
         device_ms[name] = dev_ms
         if dev_ms is None:
             log(f"device time {cname}: the profiler recorded no device time for it")
@@ -572,7 +581,7 @@ def run() -> dict:
                 f"(profiler) vs {ev_ms:.4f} ms per call (CUDA events): the event time "
                 f"measured {what}")
     _, sdpa_kernels = device_ms_per_launch(
-        torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), "flash", 1)
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), "flash", 1)
     log(f"sdpa forward ran: {sdpa_kernels}")
     bwd_ms = times["flash_bwd_dq"][0] + times["flash_bwd_dkdv"][0]
     bwd_bound = bounds["flash_bwd_dq"][0] + bounds["flash_bwd_dkdv"][0]
@@ -643,7 +652,7 @@ def run() -> dict:
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------ 7 - 9 --
-    probe_errs = probe_parity(torch, dev, (64, PROBE_N, 37))
+    probe_errs = probe_parity(torch, dev, (64, PROBE_N, 37, stages + 1))
     probe_launches, probe_times, probe_bounds = probe_sweeps(torch, dev, PROBE_N, ms)
     profile = profile_phase(torch, smi, dense_s)
     print(json.dumps({"profile": profile}))

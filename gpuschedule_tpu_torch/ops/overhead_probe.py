@@ -14,22 +14,30 @@ wrapper                CUDA kernel            replaces (Pallas TPU kernel)
 ``x`` is ``(n * 8, block)`` bf16: n tiles of (8, block), one per grid step
 of the Pallas call.  ``parallel`` picks the kernel's launch form (see the
 header of ``csrc/overhead_probe.cu``): False, one thread block walks the n
-tiles in order (the TPU's sequential grid); True, one block per tile (the
-TPU's ``dimension_semantics=("parallel",)``).  The function computed, and
-so the plain version, does not depend on it.
+tiles in order through a ring of bulk copies that keeps the next tiles in
+flight, as Mosaic pipelines the TPU's sequential grid; True, one block per
+tile (the TPU's ``dimension_semantics=("parallel",)``).  The function
+computed, and so the plain version, does not depend on it.
 
 The kernels are built by ``nvcc`` at first use (:mod:`._build`) and called
-through ctypes on PyTorch's current stream.  For a CUDA tensor a wrapper
+through ctypes on PyTorch's current stream of the tensor's device.  The
+launch path is kept short, since at n = 4096 tiles a launch costs the host
+about as long as the kernel runs: the C entry points are resolved once,
+the stream handle is read in one call, and a device context is entered
+only when ``x`` lies off the current device.  For a CUDA tensor a wrapper
 launches its kernel or raises: no fallback.  Each wrapper counts its
 launches in :data:`LAUNCHES`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
+
+from gpuschedule_tpu_torch.ops import _build
 
 ROWS = 8             # rows of one tile: the TPU's (8, 128) tiling
 BLOCKS = (128,)      # block widths the CUDA kernels are built for
@@ -44,19 +52,21 @@ def reset_launches() -> None:
 
 
 _lib: Optional[ctypes.CDLL] = None
+_entries: Dict[str, Callable[..., int]] = {}  # wrapper name -> its C entry point
+_SAME_DEVICE = contextlib.nullcontext()
 
 
 def _kernels() -> ctypes.CDLL:
     """The built kernel library, with its C signatures declared."""
     global _lib
     if _lib is None:
-        from gpuschedule_tpu_torch.ops import _build
-
         lib = _build.load("overhead_probe")
         p, i = ctypes.c_void_p, ctypes.c_int
-        for fn in (lib.gst_probe_copy, lib.gst_probe_xtx):
+        for name, fn in (("probe_copy", lib.gst_probe_copy), ("probe_matmul", lib.gst_probe_xtx)):
             fn.argtypes = [p, p, i, i, i, p]  # x, out, n, block, parallel, stream
             fn.restype = ctypes.c_int
+            _entries[name] = fn
+        lib.gst_probe_smem.argtypes = [i, i, i]  # kernel (0 copy, 1 xtx), n, parallel
         lib.gst_error_string.argtypes = [i]
         lib.gst_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -67,33 +77,38 @@ def _check_input(x: torch.Tensor) -> int:
     """The probe's input: bf16 of shape (n * 8, block).  Returns n."""
     if x.dtype != torch.bfloat16:
         raise TypeError(f"the probe takes bf16, got {x.dtype}")
-    if x.dim() != 2 or x.shape[0] % ROWS or x.shape[1] < ROWS:
-        raise ValueError(f"expected (n * {ROWS}, block >= {ROWS}), got {tuple(x.shape)}")
-    return x.shape[0] // ROWS
+    shape = x.shape
+    if len(shape) != 2 or shape[0] % ROWS or shape[1] < ROWS:
+        raise ValueError(f"expected (n * {ROWS}, block >= {ROWS}), got {tuple(shape)}")
+    return shape[0] // ROWS
 
 
-def _check_cuda(x: torch.Tensor) -> None:
-    """What the CUDA kernels take beyond :func:`_check_input`."""
+def _check_cuda(x: torch.Tensor) -> int:
+    """What the CUDA kernels take beyond :func:`_check_input`.  Returns
+    ``x.data_ptr()``."""
     if not x.is_contiguous():
         raise ValueError("the CUDA kernels take contiguous tensors")
     if x.shape[1] not in BLOCKS:
         raise ValueError(f"the CUDA kernels are built for blocks {BLOCKS}; got {x.shape[1]}")
-    if x.data_ptr() % 16:
-        raise ValueError("the CUDA kernels read 16-byte vectors: x must be 16-byte aligned")
+    ptr = x.data_ptr()
+    if ptr % 16:
+        raise ValueError("the CUDA kernels copy 16-byte aligned tiles: x must be 16-byte aligned")
+    return ptr
 
 
-def _run(name: str, fn, x: torch.Tensor, parallel: bool) -> torch.Tensor:
-    from gpuschedule_tpu_torch.ops import _build
-
+def _run(name: str, x: torch.Tensor, parallel: bool) -> torch.Tensor:
     n = _check_input(x)
-    _check_cuda(x)
+    ptr = _check_cuda(x)
     out = torch.empty_like(x)
     if n:
-        with torch.cuda.device(x.device):
-            lib = _kernels()
-            _build.launch(lib, getattr(lib, fn), x.data_ptr(), out.data_ptr(), n, x.shape[1],
-                          int(parallel), torch.cuda.current_stream().cuda_stream)
-            LAUNCHES[name] += 1
+        lib = _lib or _kernels()
+        index = x.device.index
+        # one call each into PyTorch's C API: the public calls build a Stream object, or
+        # check CUDA's initialisation first
+        with _SAME_DEVICE if index == torch._C._cuda_getDevice() else torch.cuda.device(index):
+            _build.launch(lib, _entries[name], ptr, out.data_ptr(), n, x.shape[1],
+                          int(parallel), torch._C._cuda_getCurrentRawStream(index))
+        LAUNCHES[name] += 1
     return out
 
 
@@ -108,7 +123,7 @@ def probe_copy(x: torch.Tensor, *, parallel: bool) -> torch.Tensor:
     if x.device.type != "cuda":
         _check_input(x)
         return probe_copy_plain(x)
-    return _run("probe_copy", "gst_probe_copy", x, parallel)
+    return _run("probe_copy", x, parallel)
 
 
 # ----------------------------------------------------------------- K5b --
@@ -120,10 +135,18 @@ def probe_matmul_plain(x: torch.Tensor) -> torch.Tensor:
     return out.to(torch.bfloat16).view(x.shape)
 
 
+def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Largest |a - b| over the bf16 spacing at max(|a|, |b|), elementwise
+    (NaN if either holds one): K5b's bound against its plain version is 1."""
+    a, b = a.float(), b.float()
+    _, e = torch.frexp(torch.maximum(a.abs(), b.abs()))
+    return ((a - b).abs() / torch.ldexp(torch.ones_like(a), e - 8)).max().item()
+
+
 def probe_matmul(x: torch.Tensor, *, parallel: bool) -> torch.Tensor:
     """Per (8, block) tile, rows 0-7 of its xᵀx: ``out[i, j] = Σ_r x[r, i]·x[r, j]``
     for i < 8, in f32, rounded to bf16."""
     if x.device.type != "cuda":
         _check_input(x)
         return probe_matmul_plain(x)
-    return _run("probe_matmul", "gst_probe_xtx", x, parallel)
+    return _run("probe_matmul", x, parallel)

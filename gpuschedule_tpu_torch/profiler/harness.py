@@ -2,7 +2,8 @@
 
 Counterpart of ``gpuschedule_tpu/profiler/harness.py`` on one device:
 ``time_steps``, ``time_callable``, ``measure_step_time``, ``capture_trace``
-and ``profile_model``.  PyTorch returns before the device finishes, so
+and ``profile_model``; and, for single kernels, ``device_ms_per_launch`` (a
+``torch.profiler`` window) and ``host_us_per_call`` (the launch path).  PyTorch returns before the device finishes, so
 every timed window ends in ``torch.cuda.synchronize()`` (steps) or is read
 from CUDA events (callables).  The JAX package's host-readback fence works
 around its TPU transport and has no counterpart here, nor have its tracer
@@ -80,6 +81,44 @@ def time_callable(fn, *args, iters: int = 8, warmup: int = 2, device=None) -> fl
     for _ in range(iters):
         fn(*args)
     return (time.perf_counter() - t0) / iters
+
+
+def device_ms_per_launch(fn, kernel: str, launches: int = 5):
+    """(ms per launch, kernel names seen) of the device kernels whose name
+    holds ``kernel`` over ``launches`` calls of ``fn`` in a
+    ``torch.profiler`` window; ms is None if the profiler saw no such kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(launches):
+            fn()
+        torch.cuda.synchronize()
+    names, total = set(), 0.0
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA and not getattr(evt, "is_user_annotation", False):
+            names.add(evt.name)
+            if kernel in evt.name:
+                total += evt.time_range.elapsed_us() / 1e3
+    hits = [n for n in names if kernel in n]
+    return (total / launches if hits else None), sorted(names)
+
+
+def host_us_per_call(fn, calls: int = 1000) -> float:
+    """The host's µs per call of ``fn`` when nothing waits for the device:
+    ``time.perf_counter_ns`` over ``calls`` calls with no synchronisation,
+    then one.  It prices the launch path alone, as long as the device's
+    queue does not fill."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter_ns()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter_ns()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls / 1e3
 
 
 def measure_step_time(

@@ -7,12 +7,17 @@ Method, as in the original: a kernel whose per-tile work is negligible (a
 copy of one (8, 128) bf16 tile; rows 0-7 of the tile's xᵀx) runs at growing
 grid sizes, and the slope of time against tiles is the cost of one more
 tile, the intercept the fixed cost of a call.  On this card the two launch
-forms price different things: ``parallel=False`` is one thread block
-looping over the tiles (the cost of one loop iteration inside a block),
-``parallel=True`` one block per tile (the cost of scheduling one more
-block).  Times are CUDA events around back-to-back calls
+forms price different things.  ``parallel=False`` is one thread block that
+walks the tiles through a ring of bulk copies, the next tiles in flight
+while one is processed, as Mosaic pipelines a sequential grid: its slope is
+the pipelined cost of one more tile in one block (what one SM's copy engine
+moves per tile, plus the per-tile barrier work), the counterpart of the
+original's per-grid-step cost.  ``parallel=True`` is one block per tile: its
+slope is the cost of scheduling one more block, and its intercept is mostly
+the wrapper's host path.  Times are CUDA events around back-to-back calls
 (:func:`~gpuschedule_tpu_torch.profiler.time_callable`), so a call whose
-kernel is shorter than the host's launch path is timed at the host's rate.
+kernel is shorter than the host's launch path is timed at the host's rate;
+``tools/probe_costs.py`` splits a call into device and host time.
 
 One JSON line for the device, one per point, then the slope line of each
 sweep:

@@ -1,6 +1,7 @@
-// Host emulation of the CUDA device features the flash-attention kernels
-// use, so that g++ can compile their source and run it on the CPU
-// (tests/test_torch_cuda_emulated.py).  A block's threads are coroutines
+// Host emulation of the CUDA device features the flash-attention and
+// overhead-probe kernels use, so that g++ can compile their source and run it
+// on the CPU (tests/test_torch_cuda_emulated.py,
+// tests/test_torch_probe_emulated.py).  A block's threads are coroutines
 // (ucontext) on one OS thread, switched only where a thread waits at a
 // barrier; the warp-wide operations (shuffles, ldmatrix, mma) exchange values
 // through the warp's slots between two warp barriers, and __syncthreads is a
@@ -35,6 +36,8 @@ inline emu_uint3 threadIdx, blockIdx;  // set for the thread the scheduler resum
 
 struct float4 { float x, y, z, w; };
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
+struct uint4 { uint32_t x, y, z, w; };
+inline uint4 make_uint4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) { return {a, b, c, d}; }
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 
@@ -71,14 +74,23 @@ struct EmuWarp {
   EmuBarrier bar{32};
   float f[32];
   uint32_t u[32][8];
+  // lanes whose ldmatrix reads of shared memory no fence.proxy.async has ordered yet before
+  // the async proxy (bulk copies) may write there (bulk_copy.cuh)
+  bool unfenced[32] = {};
 };
 
-// One simulated thread: its context, stack and pending cp.async groups.
+// A bulk store (shared -> global) whose source has not been read yet: it is read, and lands,
+// only when its thread's wait_read retires its group (bulk_copy.cuh).
+struct EmuBulkStore { void* dst; uint32_t src; int bytes; };
+
+// One simulated thread: its context, stack and pending cp.async and bulk-store groups.
 struct EmuThread {
   ucontext_t ctx;
   std::vector<char> stack;
   std::vector<EmuCopy> open_group;
   std::deque<std::vector<EmuCopy>> groups;
+  std::vector<EmuBulkStore> bulk_open;
+  std::deque<std::vector<EmuBulkStore>> bulk_groups;
   bool done = false;
 };
 
@@ -89,6 +101,7 @@ inline EmuWarp* emu_warp;
 inline int emu_lane;
 inline EmuBarrier* emu_block_bar;
 inline unsigned long emu_arrivals;  // barrier arrivals so far: the scheduler's progress
+inline const char* emu_fault;      // set when an emulated instruction is misused
 
 inline void emu_wait(EmuBarrier& b) {
   const unsigned gen = b.generation;
@@ -102,12 +115,21 @@ inline void emu_wait(EmuBarrier& b) {
 }
 
 inline void __syncthreads() { emu_wait(*emu_block_bar); }
+inline void __syncwarp() { emu_wait(emu_warp->bar); }  // all 32 lanes
 
 inline float __shfl_xor_sync(unsigned, float v, int mask) {
   EmuWarp& w = *emu_warp;
   w.f[emu_lane] = v;
   emu_wait(w.bar);
   const float r = w.f[emu_lane ^ mask];
+  emu_wait(w.bar);
+  return r;
+}
+inline uint32_t __shfl_xor_sync(unsigned, uint32_t v, int mask) {
+  EmuWarp& w = *emu_warp;
+  w.u[emu_lane][0] = v;
+  emu_wait(w.bar);
+  const uint32_t r = w.u[emu_lane ^ mask][0];
   emu_wait(w.bar);
   return r;
 }

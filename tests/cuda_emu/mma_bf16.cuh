@@ -51,6 +51,7 @@ inline uint16_t emu_ld16(uint32_t addr) {
 inline void emu_ldmatrix(uint32_t (&r)[4], uint32_t addr, bool trans) {
   EmuWarp& w = *emu_warp;
   const int lane = emu_lane, g = lane >> 2, t = lane & 3;
+  w.unfenced[lane] = true;
   w.u[lane][0] = addr;
   emu_wait(w.bar);
   for (int j = 0; j < 4; ++j) {
