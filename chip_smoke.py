@@ -17,18 +17,31 @@ Phases, each fatal on failure (exit code 1, no result line):
    version on the same inputs: transformer-long's attention shape
    (B=2, S=4096, H=8, D=32, bf16, causal) and ragged shapes in bf16 (the
    tensor-core kernels) and f32 (the FMA kernels) at D = 32, 64, 96 and 128,
-   causal and not; the flash op against the dense oracle in f32 and bf16;
-   flash and dense transformer-long losses at init on a short sequence;
+   causal and not, each output within FWD_TOL (out), LSE_TOL, GRAD_TOL of
+   the plain gradient's largest entry, and TILE_RTOL in every 64-row tile
+   (relative L2 per (b, h) tile); the flash op against the dense oracle in
+   f32 and bf16; flash and dense transformer-long losses at init on a short
+   sequence;
 4. kernel times — CUDA events at the transformer-long shape, beside the plain
    versions, ``F.scaled_dot_product_attention`` (a yardstick the port never
    calls) and the least time the card could take (``bound_ms``); for the
    bf16 forward, dq and dk/dv kernels also the device time per launch from
    a ``torch.profiler`` window, beside the event time;
 5. flash train step — ``ShardedTrainer("transformer-long", batch_size=2,
-   seq_len=4096, flash_attn=True)``: 3 warm-up steps, ``time_steps(iters=5,
-   repeats=3)``, one last step; the loss must be finite and fall, and the
-   launch counters must show every kernel on the path (K1 >= 8, K2 >= 4,
-   K3 >= 4 per step: 4 layers, remat recomputes each forward);
+   seq_len=4096, flash_attn=True)``, whose step on the card is a captured
+   CUDA graph: 5 steps (a warm-up, the capture and its replay, 3 replays),
+   ``time_steps(iters=5, repeats=3)``, one last step; the loss must be
+   finite and fall, and the launch counters must show every kernel on the
+   path (K1 >= 8, K2 >= 4, K3 >= 4 per step: 4 layers, remat recomputes
+   each forward).  Then the same 5 steps from the same init through the
+   trainer's eager path must give the same losses (within LOSS_RTOL); one
+   replayed step's parameters must be those that the multi-tensor adamw
+   with a host learning rate (the CPU's optimizer, held against optax
+   there) makes from the same parameters, gradients and moments (within
+   UPDATE_RTOL of the update, relative L2); 3 replays must make no host
+   sync (``torch.cuda.set_sync_debug_mode``), the
+   profiler window's launches of each kernel must equal the counters', and
+   the device must be busy at least BUSY_MIN of an unprofiled step;
 6. dense train step — transformer-large at b16 x S512, no kernel of ours;
 7. probe parity — K5a (copy) and K5b (rows 0-7 of each tile's xᵀx) in both
    launch forms against their plain versions at n = 64, 4096, 37 and
@@ -45,9 +58,22 @@ Phases, each fatal on failure (exit code 1, no result line):
 9. profile — ``profile_model("transformer-large", batch_size=16,
    seq_len=512)`` over ks 1-64 into a ``CurveCache``, which must reload
    with all seven ks, finite non-negative theta and a measured k = 1 point
-   within 15% of phase 6's step; then ``capture_trace`` of 2 steps, whose
-   file must exist; a ``{"profile": ...}`` line;
-10. a ``{"train": ...}`` line, a ``{"kernels": [...]}`` line (all five
+   within 15% of phase 6's step, and the memory of its trainers given
+   back; then ``capture_trace`` of 2 steps, whose file must exist; a
+   ``{"profile": ...}`` line;
+10. bench — ``python -m gpuschedule_tpu_torch.bench`` (dense, flash and
+   long-context cells; transformer-xlong at b1 x S32768) in a subprocess:
+   it must exit 0 with one line holding ``mfu``, a ``flash`` and a
+   ``longctx`` sub-object (neither failed nor skipped), S = 32768, a finite
+   loss, ``dense_feasible`` true or false, parity errors below 2e-2, and
+   every kernel launched by both of its train steps; a ``{"bench": ...}``
+   line.  Then K1, K2 and K3 against their plain versions at the
+   long-context shape (B=1, S=32768, H=8, D=64, bf16, causal) within phase
+   3's bounds, timed beside their bounds and SDPA's forward; and a profiler
+   window of the long-context step (where its time goes, its busy share),
+   whose launches of each kernel must be LONGCTX_PER_STEP, as the
+   counters' are;
+11. a ``{"train": ...}`` line, a ``{"kernels": [...]}`` line (all five
    kernels), and last the ``{"ok": true, "device": {...}}`` line.
 
 Exits non-zero when CUDA is unavailable or the port cannot be imported.
@@ -68,14 +94,13 @@ import tempfile
 import time
 from pathlib import Path
 
-# Published dense peaks of one H100 SXM (NVIDIA data sheet, 700 W).
-PEAK_BF16_FLOPS = 989e12
-PEAK_BYTES_PER_S = 3.35e12
-
 FWD_TOL = 2e-2      # max abs error of the forward output (bench.py's bound)
 GRAD_TOL = 2e-2     # max abs error of a gradient over the plain version's max
 LSE_TOL = 1e-3      # max abs error of the f32 logsumexp rows
-LOSS_RTOL = 2e-3    # flash vs dense loss at init (the JAX suite's bound)
+TILE_RTOL = 1e-2    # relative L2 error of any 64-row tile of an output or gradient
+LOSS_RTOL = 2e-3    # flash vs dense loss at init (the JAX suite's bound); captured vs eager
+UPDATE_RTOL = 1e-4  # a captured adamw update vs the multi-tensor one, over the update
+BUSY_MIN = 0.8      # device busy share of an unprofiled flash step, the step captured
 
 SOURCE = "gpuschedule_tpu_torch/ops/csrc/flash_attention.cu"
 # wrapper -> (the kernel bf16 inputs launch, the kernel f32 inputs launch, replaces)
@@ -89,7 +114,11 @@ KERNELS = {
 }
 TENSOR_CORE_KERNELS = ("fwd_mma_kernel", "dq_mma_kernel", "dkdv_mma_kernel")
 NO_SPILL_HEAD_DIMS = (32, 64)  # transformer-long, transformer-xlong
+TILE = 64  # rows of a kernel tile (BQ = BK)
 MAIN_SHAPE = (2, 4096, 8, 32)  # transformer-long: d_model 256 / 8 heads, S = max_seq
+LONGCTX_SHAPE = (1, 32768, 8, 64)  # transformer-xlong: d_model 512 / 8 heads, S = max_seq
+LONGCTX_PER_STEP = {"flash_fwd": 12, "flash_bwd_dq": 6, "flash_bwd_dkdv": 6}  # 6 layers, remat
+BENCH_TIMEOUT_S = 760  # above the bench's own budget, which bounds its children
 
 PROBE_SOURCE = "gpuschedule_tpu_torch/ops/csrc/overhead_probe.cu"
 PROBE_KERNELS = {
@@ -99,6 +128,10 @@ PROBE_KERNELS = {
 PROBE_N, PROBE_BLOCK = 4096, 128  # the probe's largest grid, its tile width
 PROFILE_KS = (1, 2, 4, 8, 16, 32, 64)
 PROFILE_RTOL = 0.15  # profiled k = 1 step vs phase 6's step: same model, batch, S
+# what profile_model may leave allocated: not a trainer (GBs of activations in
+# its graph's pool), at most a library's workspace for a new stream
+PROFILE_KEPT_MIB = 256
+ROOT = Path(__file__).resolve().parent
 
 
 class SmokeFailure(Exception):
@@ -112,15 +145,6 @@ def check(ok: bool, msg: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def nvidia_smi_line() -> str:
-    res = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    check(res.returncode == 0, f"nvidia-smi failed: {res.stderr.strip()}")
-    return res.stdout.strip().splitlines()[0]
 
 
 def attention_cost(b, s, h, d, causal, esize, kernel):
@@ -138,8 +162,10 @@ def attention_cost(b, s, h, d, causal, esize, kernel):
     return 8 * d * pairs, 4 * n + 2 * rows + 2 * n
 
 
-def bound(flops, nbytes, peak_flops):
-    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES_PER_S
+def bound(flops, nbytes, peaks):
+    """(ms, what bounds it): the least time the card of ``peaks`` (a
+    ``CARDS`` entry) could take for these bf16 operations and bytes."""
+    t_ops, t_bytes = flops / peaks["bf16_flops"], nbytes / peaks["bytes_per_s"]
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -216,11 +242,12 @@ def hmma_counts(lib_path: str, tool: str) -> dict:
     return counts
 
 
-def profile_steps(torch, trainer, state, tokens, steps: int = 2) -> dict:
+def profile_steps(torch, trainer, state, tokens, steps: int = 2, kernels=()) -> dict:
     """Device time by kernel over ``steps`` train steps (``torch.profiler``):
-    per-step ms of the top kernels, their sum, and the busy share of the
+    per-step ms of the top kernels, their sum, the busy share of the
     profiled window's wall time (the profiler's own overhead lands in the
-    idle share; the caller adds the share of an unprofiled step).
+    idle share; the caller adds the share of an unprofiled step), and the
+    launches a step of each kernel named in ``kernels``.
     A failing step fails the run; only a profiler that saw no device
     activity is recorded as a diagnostic instead."""
     from torch.autograd import DeviceType
@@ -234,11 +261,14 @@ def profile_steps(torch, trainer, state, tokens, steps: int = 2) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name: dict = {}
+    counts = {k: 0 for k in kernels}
     for evt in prof.events():
         # device activity only: GPU-side user annotations (the optimizer's
         # range) overlap the kernels they contain
         if evt.device_type == DeviceType.CUDA and not getattr(evt, "is_user_annotation", False):
             by_name[evt.name] = by_name.get(evt.name, 0.0) + evt.time_range.elapsed_us() / 1e3
+            for k in kernels:
+                counts[k] += k in evt.name
     if not by_name:
         return {"error": "the profiler recorded no device activity"}
     busy = sum(by_name.values())
@@ -247,7 +277,99 @@ def profile_steps(torch, trainer, state, tokens, steps: int = 2) -> dict:
         "steps": steps, "wall_ms_per_step": wall_ms / steps,
         "device_ms_per_step": busy / steps, "busy_share": busy / wall_ms,
         "top": [{"kernel": n[:90], "ms_per_step": t / steps, "share": t / busy} for n, t in top],
+        "launches_per_step": {k: c / steps for k, c in counts.items()},
     }
+
+
+def tile_rel_err(torch, got, ref) -> float:
+    """The largest relative L2 error over the 64-row tiles of each (b, h) of
+    a (B, S, H, D) tensor: each tile's error over the norm of ``ref``'s
+    tile, so a fault where the values are small (late rows of a long causal
+    output, late keys' gradients) is weighed against their own size."""
+    b, s, h, d = ref.shape
+    pad = -s % TILE
+
+    def tile_norms(x):
+        x = torch.nn.functional.pad(x.float(), (0, 0, 0, 0, 0, pad))
+        return torch.linalg.vector_norm(x.view(b, -1, TILE, h, d), dim=(2, 4))
+
+    err = tile_norms(got.float() - ref.float()) / tile_norms(ref).clamp_min(1e-30)
+    return err.max().item()
+
+
+def parity_errors(torch, fa, dev, shape, dtype, causal, seed) -> dict:
+    """The three flash kernels against their plain versions on seeded
+    inputs of ``shape``: for out, dq, dk and dv the max abs error
+    (``abs``), that error over the plain tensor's largest entry (``rel``)
+    and :func:`tile_rel_err` (``tile``); the lse rows' max abs error."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, g = (torch.randn(shape, generator=gen, device=dev).to(dtype) for _ in range(4))
+    out, lse = fa.flash_fwd(q, k, v, causal=causal)
+    out_p, lse_p = fa.flash_fwd_plain(q, k, v, causal)
+    delta = fa.attention_delta(out_p, g)
+    dq = fa.flash_bwd_dq(q, k, v, g, lse_p, delta, causal=causal)
+    dk, dv = fa.flash_bwd_dkdv(q, k, v, g, lse_p, delta, causal=causal)
+    dq_p = fa.flash_bwd_dq_plain(q, k, v, g, lse_p, delta, causal)
+    dk_p, dv_p = fa.flash_bwd_dkdv_plain(q, k, v, g, lse_p, delta, causal)
+    torch.cuda.synchronize()
+    errs = {"lse": (lse - lse_p).abs().max().item()}
+    for name, a, b in (("out", out, out_p), ("dq", dq, dq_p), ("dk", dk, dk_p), ("dv", dv, dv_p)):
+        diff = (a.float() - b.float()).abs().max().item()
+        errs[name] = {"abs": diff, "rel": diff / max(b.float().abs().max().item(), 1e-6),
+                      "tile": tile_rel_err(torch, a, b)}
+    return errs
+
+
+def captured_update_check(torch, trainer, state, tokens, make_optimizer):
+    """Phase 5: one replayed step's adamw update (the fused capturable form,
+    its rate on the device) against the update that the multi-tensor adamw
+    with a host rate makes from the same parameters, gradients and moments:
+    their difference over that update's size (relative L2 over all
+    parameters) must stay below UPDATE_RTOL.  Returns ``(state, that ratio)``."""
+    adamw = state.optimizer.adamw
+    params = [p for group in adamw.param_groups for p in group["params"]]
+    before = [p.detach().clone() for p in params]
+    moments = [{name: t.clone() for name, t in adamw.state[p].items()} for p in params]
+    lr = float(adamw.param_groups[0]["lr"])
+    state, _ = trainer.step(state, tokens)        # the gradients stay in p.grad
+    copies = [torch.nn.Parameter(p0.clone()) for p0 in before]
+    for c, p in zip(copies, params):
+        c.grad = p.grad.detach().clone()
+    ref = make_optimizer(copies, lr, capturable=False).adamw
+    for c, m in zip(copies, moments):
+        ref.state[c] = {"step": m["step"].cpu(), "exp_avg": m["exp_avg"],
+                        "exp_avg_sq": m["exp_avg_sq"]}
+    ref.step()
+    norm = torch.linalg.vector_norm
+    diff = norm(torch.stack([norm(p.detach() - c.detach()) for p, c in zip(params, copies)]))
+    size = norm(torch.stack([norm(c.detach() - p0) for c, p0 in zip(copies, before)]))
+    rel = (diff / size).item()
+    log(f"one captured adamw update vs the multi-tensor adamw's from the same state: "
+        f"relative L2 {rel:.3e} of the update (bound {UPDATE_RTOL}, lr {lr})")
+    check(rel < UPDATE_RTOL, "the captured adamw update disagrees with the multi-tensor one")
+    return state, rel
+
+
+def kernel_parity(torch, fa, dev, shape, dtype, causal, seed) -> dict:
+    """:func:`parity_errors`, held to the bounds: out's max abs error below
+    FWD_TOL, lse's below LSE_TOL, each gradient's below GRAD_TOL of the
+    plain gradient's largest entry, and every output's tile error below
+    TILE_RTOL.  Returns each kernel's max abs error and largest tile error."""
+    e = parity_errors(torch, fa, dev, shape, dtype, causal, seed)
+    out, dq, dk, dv = e["out"], e["dq"], e["dk"], e["dv"]
+    log(f"parity {shape} {dtype} causal={causal}: out {out['abs']:.3e} lse {e['lse']:.3e} "
+        f"dq {dq['abs']:.3e} ({dq['rel']:.2e} rel) dk {dk['abs']:.3e} ({dk['rel']:.2e}) "
+        f"dv {dv['abs']:.3e} ({dv['rel']:.2e}); by 64-row tile out {out['tile']:.2e} "
+        f"dq {dq['tile']:.2e} dk {dk['tile']:.2e} dv {dv['tile']:.2e}")
+    check(out["abs"] < FWD_TOL and e["lse"] < LSE_TOL, f"forward kernel disagrees at {shape}")
+    check(max(dq["rel"], dk["rel"], dv["rel"]) < GRAD_TOL,
+          f"backward kernels disagree at {shape}")
+    tiles = {"flash_fwd": out["tile"], "flash_bwd_dq": dq["tile"],
+             "flash_bwd_dkdv": max(dk["tile"], dv["tile"])}
+    check(max(tiles.values()) < TILE_RTOL,
+          f"a 64-row tile of a kernel's output disagrees at {shape}: {tiles}")
+    return {"abs": {"flash_fwd": out["abs"], "flash_bwd_dq": dq["abs"],
+                    "flash_bwd_dkdv": max(dk["abs"], dv["abs"])}, "tile": tiles}
 
 
 def probe_parity(torch, dev, sizes) -> dict:
@@ -276,7 +398,7 @@ def probe_parity(torch, dev, sizes) -> dict:
     return errs
 
 
-def probe_sweeps(torch, dev, n, ms):
+def probe_sweeps(torch, dev, n, ms, peaks):
     """Phase 8: the overhead probe's four sweeps (its main path, counted),
     then each kernel at n tiles in both forms: CUDA-event ms, device ms per
     launch and the wrapper's host µs per call (``tools/probe_costs.py``),
@@ -311,7 +433,7 @@ def probe_sweeps(torch, dev, n, ms):
         check(par["device_ms"] is not None and seq["device_ms"] is not None,
               f"the profiler recorded no device time for {name}")
         flops, nbytes = probe_cost(n, PROBE_BLOCK, name)
-        bounds[name] = bound(flops, nbytes, PEAK_BF16_FLOPS)
+        bounds[name] = bound(flops, nbytes, peaks)
         t = times[name]
         log(f"time {name} n={n} block={PROBE_BLOCK} bf16: {t['ms']:.5f} ms parallel "
             f"(device {t['device_ms']:.5f} ms a launch, host {t['host_us']:.2f} us a call), "
@@ -333,10 +455,18 @@ def profile_phase(torch, smi, dense_s, model="transformer-large", batch=16, seq=
 
     with tempfile.TemporaryDirectory() as tmp:
         cache_path = os.path.join(tmp, "curves.json")
+        torch.cuda.synchronize()
+        held0 = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
         curve = profile_model(model, batch_size=batch, seq_len=seq, ks=PROFILE_KS,
                               cache=CurveCache(cache_path), device=device)
         profile_s = time.perf_counter() - t0
+        # each measured trainer, its captured graph and the graph's pool
+        # with it, is gone once profile_model returns
+        kept_mib = (torch.cuda.memory_allocated() - held0) / 2**20
+        log(f"profile: {kept_mib:.1f} MiB still allocated after profile_model "
+            f"(bound {PROFILE_KEPT_MIB} MiB)")
+        check(kept_mib <= PROFILE_KEPT_MIB, "profile_model keeps a trainer's memory")
         reloaded = CurveCache(cache_path).get(model)
         with open(cache_path) as f:
             entry = json.load(f)[model]
@@ -362,9 +492,124 @@ def profile_phase(torch, smi, dense_s, model="transformer-large", batch=16, seq=
             "theta": list(curve.theta), "source": entry["source"], "points": entry["points"],
             "multislice": entry.get("multislice"), "measured_ms": measured_s * 1e3,
             "dense_step_ms": dense_s * 1e3, "rel_to_dense": rel, "profile_s": profile_s,
-            "trace_s": trace_s, "trace_bytes": os.path.getsize(trace),
+            "trace_s": trace_s, "trace_bytes": os.path.getsize(trace), "kept_mib": kept_mib,
             "trace_kernel_events": sum(e.get("cat") == "kernel" for e in events),
         }
+
+
+def bench_phase(torch) -> dict:
+    """Phase 10: the port's bench (``python -m gpuschedule_tpu_torch.bench``)
+    in a subprocess, with this process's cached memory handed back first.
+    Its one line must show every cell run, right and on the kernels (see
+    the module docstring); returns the line."""
+    torch.cuda.empty_cache()
+    held_gib = torch.cuda.memory_reserved() / 2**30
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "gpuschedule_tpu_torch.bench"],
+                         capture_output=True, text=True, timeout=BENCH_TIMEOUT_S, cwd=ROOT)
+    bench_s = time.perf_counter() - t0
+    for text in res.stderr.splitlines():
+        print(f"bench: {text}", file=sys.stderr)
+    lines = res.stdout.strip().splitlines()
+    log(f"bench: exit {res.returncode} after {bench_s:.1f} s, this process holding "
+        f"{held_gib:.2f} GiB; {lines[-1] if lines else 'no output'}")
+    check(res.returncode == 0 and bool(lines), f"the bench exited {res.returncode}")
+    line = json.loads(lines[-1])
+    check(line.get("value", 0) > 0 and "mfu" in line, "the bench's dense cell has no rate or mfu")
+    for key in ("flash", "longctx"):
+        sub = line.get(key)
+        check(isinstance(sub, dict) and "failed" not in sub and "skipped" not in sub,
+              f"the bench's {key} cell did not run: {sub}")
+    fl, lc = line["flash"], line["longctx"]
+    check(fl["fwd_maxerr"] < FWD_TOL and fl["bwd_relerr"] < GRAD_TOL and fl["compiled"],
+          f"the bench's flash cell: {fl}")
+    check(lc["seq_len"] == LONGCTX_SHAPE[1] and lc["dense_feasible"] in (True, False)
+          and lc["loss"] is not None and math.isfinite(lc["loss"]),
+          f"the bench's long-context cell: {lc}")
+    for cell, need in ((fl, {"flash_fwd": 8, "flash_bwd_dq": 4, "flash_bwd_dkdv": 4}),
+                       (lc, LONGCTX_PER_STEP)):
+        per_step = {name: cell["launches"][name] / cell["steps"] for name in KERNELS}
+        check(all(per_step[name] >= need[name] for name in KERNELS),
+              f"a bench train step did not run every kernel: {per_step} per step")
+    return {**line, "bench_s": bench_s, "held_gib": held_gib}
+
+
+def longctx_profile(torch, fa, step_ms) -> dict:
+    """Phase 10: the bench's long-context step (transformer-xlong, b1 x
+    S32768, flash + remat) once more in this process, for a profiler window
+    of 2 replayed steps: its kernels and its device busy share of the
+    bench's unprofiled ``step_ms``.  The launches of each kernel the
+    profiler sees in a replayed step must be LONGCTX_PER_STEP, and the
+    counters' (added on each replay from what the capture recorded) the
+    same."""
+    from gpuschedule_tpu_torch.parallel import ShardedTrainer
+
+    b, s, _, _ = LONGCTX_SHAPE
+    trainer = ShardedTrainer("transformer-xlong", batch_size=b, seq_len=s, flash_attn=True)
+    state = trainer.init(seed=0)
+    tokens = trainer.make_batch(seed=0)
+    for _ in range(3):  # a warm-up, the capture and its replay, a replay
+        state, _ = trainer.step(state, tokens)
+    before = dict(fa.LAUNCHES)
+    prof = profile_steps(torch, trainer, state, tokens,
+                         kernels=[KERNELS[name][0] for name in KERNELS])
+    check("device_ms_per_step" in prof, f"long-context step profile: {prof}")
+    prof["busy_share_of_step"] = prof["device_ms_per_step"] / step_ms
+    log(f"long-context step profile: {json.dumps(prof)}")
+    window = {name: (fa.LAUNCHES[name] - before[name]) / prof["steps"] for name in KERNELS}
+    seen = {name: prof["launches_per_step"][KERNELS[name][0]] for name in KERNELS}
+    log(f"launches a replayed long-context step: counters {window}, profiler {seen}, "
+        f"expected {LONGCTX_PER_STEP}")
+    check(seen == window == LONGCTX_PER_STEP,
+          f"long-context step: the profiler's kernels {seen}, the counters' {window}, "
+          f"expected {LONGCTX_PER_STEP}")
+    del state, trainer, tokens
+    torch.cuda.empty_cache()
+    return prof
+
+
+def longctx_kernels(torch, fa, dev, ms, peaks, F) -> dict:
+    """Phase 10: K1, K2 and K3 at the long-context shape against their plain
+    versions (phase 3's bounds), then their event times beside the plain
+    versions', the bound and SDPA's forward at the same shape.  At this S
+    the outputs of late rows and the gradients of late keys are far smaller
+    than the largest entries, so only the tile bound (TILE_RTOL) sees a
+    fault confined to late tiles: ``scripts/longctx_fault_check.py`` plants
+    such faults and shows that they fail it."""
+    from gpuschedule_tpu_torch.profiler import time_callable
+
+    b, s, h, d = LONGCTX_SHAPE
+    errs = kernel_parity(torch, fa, dev, LONGCTX_SHAPE, torch.bfloat16, True, 400)
+    gen = torch.Generator(device=dev).manual_seed(401)
+    q, k, v, g = (torch.randn(LONGCTX_SHAPE, generator=gen, device=dev).to(torch.bfloat16)
+                  for _ in range(4))
+    out, lse = fa.flash_fwd(q, k, v, causal=True)
+    delta = fa.attention_delta(out, g)
+    calls = {
+        "flash_fwd": (lambda: fa.flash_fwd(q, k, v, causal=True),
+                      lambda: fa.flash_fwd_plain(q, k, v, True)),
+        "flash_bwd_dq": (lambda: fa.flash_bwd_dq(q, k, v, g, lse, delta, causal=True),
+                         lambda: fa.flash_bwd_dq_plain(q, k, v, g, lse, delta, True)),
+        "flash_bwd_dkdv": (lambda: fa.flash_bwd_dkdv(q, k, v, g, lse, delta, causal=True),
+                           lambda: fa.flash_bwd_dkdv_plain(q, k, v, g, lse, delta, True)),
+    }
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa_ms = ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), 10)
+    kernels = {}
+    for name, (kernel, plain) in calls.items():
+        flops, nbytes = attention_cost(b, s, h, d, True, 2, name)
+        bound_ms, bound_by = bound(flops, nbytes, peaks)
+        k_ms = ms(kernel, 10)
+        p_ms = time_callable(plain, iters=1, warmup=1, device=dev) * 1e3
+        kernels[name] = {"shape": list(LONGCTX_SHAPE), "tile_rel_err": errs["tile"][name],
+                         "ms": k_ms, "plain_ms": p_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by,
+                         "library_ms": sdpa_ms if name == "flash_fwd" else None}
+        log(f"time {name} {LONGCTX_SHAPE} bf16 causal: {k_ms:.4f} ms (plain {p_ms:.2f} ms, "
+            f"bound {bound_ms:.4f} ms by {bound_by}, {flops / 1e9:.1f} GFLOP, "
+            f"{nbytes / 1e6:.1f} MB; {k_ms / bound_ms:.2f}x the bound)")
+    log(f"time sdpa forward {LONGCTX_SHAPE} bf16 causal: {sdpa_ms:.4f} ms")
+    return {"max_abs_err": errs["abs"], "kernels": kernels}
 
 
 def run() -> dict:
@@ -375,9 +620,11 @@ def run() -> dict:
     try:
         import torch.nn.functional as F
 
+        from gpuschedule_tpu_torch.cluster.cards import CARDS, detect_card, nvidia_smi_line
         from gpuschedule_tpu_torch.ops import _build, dense_attention
         from gpuschedule_tpu_torch.ops import overhead_probe as op
         from gpuschedule_tpu_torch.parallel import ShardedTrainer
+        from gpuschedule_tpu_torch.parallel.train import make_optimizer
         from gpuschedule_tpu_torch.profiler import device_ms_per_launch, time_callable, time_steps
 
         # the module, not the op of the same name that ops/__init__ exports
@@ -392,8 +639,14 @@ def run() -> dict:
     # ---------------------------------------------------------------- 1 --
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
-    log(f"device: {kind} (torch {torch.__version__}, CUDA {torch.version.cuda})")
+    props = torch.cuda.get_device_properties(0)
+    log(f"device: {kind} (torch {torch.__version__}, CUDA {torch.version.cuda}); "
+        f"{props.multi_processor_count} SMs, {props.total_memory / 2**30:.2f} GiB, "
+        f"compute capability {props.major}.{props.minor}")
     log(smi)
+    card = detect_card(kind)
+    check(card is not None, f"no published peaks for {kind!r} in CARDS: no bound to hold times to")
+    peaks = CARDS[card]
     dev = torch.device("cuda")
 
     # ---------------------------------------------------------------- 2 --
@@ -472,31 +725,7 @@ def run() -> dict:
         ((1, 77, 2, 32), torch.float32, True),
     ]
     for i, (shape, dtype, causal) in enumerate(parity):
-        gen = torch.Generator(device=dev).manual_seed(100 + i)
-        q, k, v, g = (torch.randn(shape, generator=gen, device=dev).to(dtype) for _ in range(4))
-        out, lse = fa.flash_fwd(q, k, v, causal=causal)
-        out_p, lse_p = fa.flash_fwd_plain(q, k, v, causal)
-        torch.cuda.synchronize()
-        e_out = (out.float() - out_p.float()).abs().max().item()
-        e_lse = (lse - lse_p).abs().max().item()
-        delta = fa.attention_delta(out_p, g)
-        dq = fa.flash_bwd_dq(q, k, v, g, lse_p, delta, causal=causal)
-        dk, dv = fa.flash_bwd_dkdv(q, k, v, g, lse_p, delta, causal=causal)
-        dq_p = fa.flash_bwd_dq_plain(q, k, v, g, lse_p, delta, causal)
-        dk_p, dv_p = fa.flash_bwd_dkdv_plain(q, k, v, g, lse_p, delta, causal)
-        torch.cuda.synchronize()
-
-        def rel(a, b):
-            diff = (a.float() - b.float()).abs().max().item()
-            return diff, diff / max(b.float().abs().max().item(), 1e-6)
-
-        (a_dq, r_dq), (a_dk, r_dk), (a_dv, r_dv) = rel(dq, dq_p), rel(dk, dk_p), rel(dv, dv_p)
-        log(f"parity {shape} {dtype} causal={causal}: out {e_out:.3e} lse {e_lse:.3e} "
-            f"dq {a_dq:.3e} ({r_dq:.2e} rel) dk {a_dk:.3e} ({r_dk:.2e}) dv {a_dv:.3e} ({r_dv:.2e})")
-        check(e_out < FWD_TOL and e_lse < LSE_TOL, f"forward kernel disagrees at {shape}")
-        check(max(r_dq, r_dk, r_dv) < GRAD_TOL, f"backward kernels disagree at {shape}")
-        for name, e in (("flash_fwd", e_out), ("flash_bwd_dq", a_dq),
-                        ("flash_bwd_dkdv", max(a_dk, a_dv))):
+        for name, e in kernel_parity(torch, fa, dev, shape, dtype, causal, 100 + i)["abs"].items():
             errs[name] = max(errs[name], e)
 
     # the whole op (autograd through the three kernels) against the dense oracle
@@ -556,7 +785,7 @@ def run() -> dict:
     bounds = {}
     for name in KERNELS:
         flops, nbytes = attention_cost(b, s, h, d, True, 2, name)
-        bounds[name] = bound(flops, nbytes, PEAK_BF16_FLOPS)
+        bounds[name] = bound(flops, nbytes, peaks)
         k_ms, p_ms = times[name]
         log(f"time {name} {MAIN_SHAPE} bf16 causal: {k_ms:.4f} ms (plain {p_ms:.4f} ms, "
             f"bound {bounds[name][0]:.4f} ms by {bounds[name][1]}, "
@@ -593,30 +822,60 @@ def run() -> dict:
     # ---------------------------------------------------------------- 5 --
     trainer = ShardedTrainer("transformer-long", batch_size=2, seq_len=4096, flash_attn=True)
     state = trainer.init(seed=0)
+    eager_state = trainer.init(seed=0)
     tokens = trainer.make_batch(seed=0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launches()                           # the main path starts here
     losses = []
-    for _ in range(3):
+    for _ in range(5):  # a warm-up, the capture and its replay, 3 replays
         state, loss = trainer.step(state, tokens)
         losses.append(loss.item())
     step_s, state = time_steps(trainer.step, state, tokens, iters=5, repeats=3)
     state, loss = trainer.step(state, tokens)
     losses.append(loss.item())
     launches = dict(fa.LAUNCHES)                  # ... and ends here
-    flash_prof = profile_steps(torch, trainer, state, tokens)
-    if "device_ms_per_step" in flash_prof:  # busy share of an unprofiled step
-        flash_prof["busy_share_of_step"] = flash_prof["device_ms_per_step"] / (step_s * 1e3)
+    n_steps = 5 + 5 * 3 + 1
+    # the captured step against the trainer's eager path, from the same init
+    eager_losses = []
+    for _ in range(5):
+        eager_state, loss = trainer._eager_step(eager_state, tokens)
+        eager_losses.append(loss.item())
+    capture_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, eager_losses))
+    log(f"captured vs eager losses over 5 steps: {losses[:5]} vs {eager_losses} "
+        f"(max rel {capture_rel:.2e}, bound {LOSS_RTOL})")
+    check(capture_rel < LOSS_RTOL, "the captured step disagrees with the eager step")
+    del eager_state
+    state, update_rel = captured_update_check(torch, trainer, state, tokens, make_optimizer)
+    # a replayed step waits for nothing on the host
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            state, loss = trainer.step(state, tokens)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    before = dict(fa.LAUNCHES)
+    flash_prof = profile_steps(torch, trainer, state, tokens,
+                               kernels=[KERNELS[name][0] for name in KERNELS])
+    window = {name: (fa.LAUNCHES[name] - before[name]) / flash_prof.get("steps", 1)
+              for name in KERNELS}
     log(f"flash step profile: {json.dumps(flash_prof)}")
-    n_steps = 3 + 5 * 3 + 1
+    check("device_ms_per_step" in flash_prof, f"flash step profile: {flash_prof}")
+    flash_prof["busy_share_of_step"] = flash_prof["device_ms_per_step"] / (step_s * 1e3)
+    seen = {name: flash_prof["launches_per_step"][KERNELS[name][0]] for name in KERNELS}
+    log(f"launches a replayed step: counters {window}, profiler {seen}; device busy "
+        f"{flash_prof['busy_share_of_step']:.3f} of an unprofiled step")
+    check(seen == window, f"the profiler's kernels {seen} are not the counters' {window}")
+    check(flash_prof["busy_share_of_step"] >= BUSY_MIN,
+          f"the device is busy {flash_prof['busy_share_of_step']:.3f} of the flash step "
+          f"(bound {BUSY_MIN})")
     flash_tps = 2 * 4096 / step_s
     cfg = trainer.cfg
     flash_tflops = cfg.flops_per_token_attn(4096) * 2 * 4096 / step_s / 1e12
     flash_mem = torch.cuda.max_memory_allocated() / 2**30
     log(f"flash train step transformer-long b2 S4096: {step_s * 1e3:.3f} ms/step, "
         f"{flash_tps:.1f} tokens/s, {flash_tflops:.2f} TFLOP/s attention-aware "
-        f"(MFU {flash_tflops * 1e12 / PEAK_BF16_FLOPS:.4f} of 989 TF/s), peak "
+        f"(MFU {flash_tflops * 1e12 / peaks['bf16_flops']:.4f} of {card} bf16 peak), peak "
         f"{flash_mem:.2f} GiB, losses {losses}, launches {launches} over {n_steps} steps")
     check(all(math.isfinite(x) for x in losses), f"non-finite flash train loss: {losses}")
     check(losses[-1] < losses[0], f"flash train loss did not fall: {losses}")
@@ -642,9 +901,9 @@ def run() -> dict:
     if "device_ms_per_step" in dense_prof:
         dense_prof["busy_share_of_step"] = dense_prof["device_ms_per_step"] / (dense_s * 1e3)
     log(f"dense step profile: {json.dumps(dense_prof)}")
-    dense_mfu = trainer.cfg.flops_per_token() * 16 * 512 / dense_s / PEAK_BF16_FLOPS
+    dense_mfu = trainer.cfg.flops_per_token() * 16 * 512 / dense_s / peaks["bf16_flops"]
     log(f"dense train step transformer-large b16 S512: {dense_s * 1e3:.3f} ms/step, "
-        f"{dense_tps:.1f} tokens/s, MFU {dense_mfu:.4f} of 989 TF/s (6N FLOPs) on "
+        f"{dense_tps:.1f} tokens/s, MFU {dense_mfu:.4f} of {card} bf16 peak (6N FLOPs) on "
         f"{smi}; losses {dense_losses}")
     check(all(math.isfinite(x) for x in dense_losses), "non-finite dense train loss")
     check(dict(fa.LAUNCHES) == before, "the dense path launched a flash kernel")
@@ -653,21 +912,34 @@ def run() -> dict:
 
     # ------------------------------------------------------------ 7 - 9 --
     probe_errs = probe_parity(torch, dev, (64, PROBE_N, 37, stages + 1))
-    probe_launches, probe_times, probe_bounds = probe_sweeps(torch, dev, PROBE_N, ms)
+    probe_launches, probe_times, probe_bounds = probe_sweeps(torch, dev, PROBE_N, ms, peaks)
     profile = profile_phase(torch, smi, dense_s)
     print(json.dumps({"profile": profile}))
 
     # --------------------------------------------------------------- 10 --
+    bench = bench_phase(torch)
+    print(json.dumps({"bench": bench}))
+    longctx_prof = longctx_profile(torch, fa, bench["longctx"]["step_ms"])
+    longctx = longctx_kernels(torch, fa, dev, ms, peaks, F)
+    for name, e in longctx["max_abs_err"].items():
+        errs[name] = max(errs[name], e)
+    bench_launches = {name: bench["flash"]["launches"][name] + bench["longctx"]["launches"][name]
+                      for name in KERNELS}
+
+    # --------------------------------------------------------------- 11 --
     train = {
         "card": smi, "build_s": build_s,
         "flash": {"model": "transformer-long", "batch": 2, "seq": 4096,
                   "step_ms": step_s * 1e3, "tokens_per_s": flash_tps,
                   "tflops_attn_aware": flash_tflops, "peak_gib": flash_mem,
                   "losses": losses, "steps": n_steps, "launches": launches,
-                  "profile": flash_prof},
+                  "captured_vs_eager_loss_rel": capture_rel,
+                  "captured_update_rel": update_rel, "profile": flash_prof},
         "dense": {"model": "transformer-large", "batch": 16, "seq": 512,
                   "step_ms": dense_s * 1e3, "tokens_per_s": dense_tps, "mfu": dense_mfu,
                   "profile": dense_prof},
+        "longctx": {"model": "transformer-xlong", "batch": 1, "seq": LONGCTX_SHAPE[1],
+                    "profile": longctx_prof},
         "build": build_report, "device_ms_per_launch": device_ms,
         "backward": {"ms": bwd_ms, "bound_ms": bwd_bound,
                      "plain_ms": times["flash_bwd_dq"][1] + times["flash_bwd_dkdv"][1],
@@ -678,7 +950,8 @@ def run() -> dict:
          "replaces": replaces, "launches": launches[name], "max_abs_err": errs[name],
          "ms": times[name][0], "plain_ms": times[name][1],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-         "library_ms": library[name]}
+         "library_ms": library[name], "launches_bench": bench_launches[name],
+         "longctx": longctx["kernels"][name]}
         for name, (cname, f32_name, replaces) in KERNELS.items()
     ] + [
         {"name": cname, "route": "cuda", "source": PROBE_SOURCE, "replaces": replaces,

@@ -3,10 +3,11 @@
 Counterparts of the JAX package's subcommands on one device:
 
 - ``train`` builds the trainer, feeds it :func:`synthetic_lm_batches` and
-  prints one JSON summary line with the keys this port can fill
-  (``model``, ``steps``, ``first_loss``, ``last_loss``, ``tokens_per_s``,
-  plus ``device``).  ``--data``, ``--ckpt`` and ``--restore`` are not
-  ported yet (ROADMAP.md).
+  prints one JSON summary line with the JAX CLI's keys (``model``,
+  ``steps``, ``mesh``, ``first_loss``, ``last_loss``, ``tokens_per_s``
+  rounded to 0.1, ``checkpoint``, ``resumed_at_step``), plus ``device``.
+  ``--data``, ``--ckpt`` and ``--restore`` are not ported yet (ROADMAP.md),
+  so the last two are null.
 - ``profile`` measures each ``--model``'s step, fits its goodput curve into
   the ``--curves`` JSON that the simulator's Optimus policy reads
   (``gpuschedule_tpu run --policy optimus --curves``), and prints
@@ -28,6 +29,7 @@ import torch
 def cmd_train(args) -> int:
     from gpuschedule_tpu_torch.data import synthetic_lm_batches
     from gpuschedule_tpu_torch.parallel import ShardedTrainer
+    from gpuschedule_tpu_torch.parallel.train import MESH_AXES
 
     if args.steps < 1:
         raise SystemExit("--steps must be >= 1")
@@ -65,16 +67,19 @@ def cmd_train(args) -> int:
     last_loss = float(loss)
     elapsed = time.perf_counter() - t0
     tokens_per_s = (
-        (n - 1) * trainer.batch_size * args.seq_len / elapsed
+        round((n - 1) * trainer.batch_size * args.seq_len / elapsed, 1)
         if n > 1 and elapsed > 0 else None
     )
     dev = trainer.device
     print(json.dumps({
         "model": args.model,
         "steps": n,
+        "mesh": dict.fromkeys(MESH_AXES, 1),  # one device
         "first_loss": first_loss,
         "last_loss": last_loss,
         "tokens_per_s": tokens_per_s,
+        "checkpoint": None,
+        "resumed_at_step": None,
         "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
     }, sort_keys=True))
     return 0

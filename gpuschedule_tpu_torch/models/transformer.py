@@ -179,7 +179,10 @@ class TransformerLM(nn.Module):
         x = x + self.pos_embed[: tokens.shape[1]].to(BF16)
         for block in self.blocks:
             if self.cfg.remat and torch.is_grad_enabled():
-                x = checkpoint(block, x, use_reentrant=False)
+                # no dropout or other draw in either model family (nor in
+                # the flax zoo), so the recompute needs no RNG state, and
+                # stashing the CUDA one would not survive a graph capture
+                x = checkpoint(block, x, use_reentrant=False, preserve_rng_state=False)
             else:
                 x = block(x)
         return self.lm_head(self.ln_f(x)).float()

@@ -43,6 +43,7 @@ from typing import Dict, Optional
 
 import torch
 
+from gpuschedule_tpu_torch.ops import launches
 from gpuschedule_tpu_torch.ops.reference import NEG_INF
 
 # The kernels' compiled tile (BQ = BK in csrc/flash_attention.cu) and the
@@ -52,7 +53,7 @@ HEAD_DIMS = (32, 64, 96, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 
 # Launches of each CUDA kernel, counted by its wrapper where it launches.
-LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkdv": 0}
+LAUNCHES: Dict[str, int] = launches.counter("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")
 
 
 def reset_launches() -> None:

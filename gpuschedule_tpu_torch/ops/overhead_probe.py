@@ -37,13 +37,13 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from gpuschedule_tpu_torch.ops import _build
+from gpuschedule_tpu_torch.ops import _build, launches
 
 ROWS = 8             # rows of one tile: the TPU's (8, 128) tiling
 BLOCKS = (128,)      # block widths the CUDA kernels are built for
 
 # Launches of each CUDA kernel, counted by its wrapper where it launches.
-LAUNCHES: Dict[str, int] = {"probe_copy": 0, "probe_matmul": 0}
+LAUNCHES: Dict[str, int] = launches.counter("probe_copy", "probe_matmul")
 
 
 def reset_launches() -> None:

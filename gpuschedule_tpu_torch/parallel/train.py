@@ -2,8 +2,11 @@
 
 Counterpart of ``gpuschedule_tpu/parallel/train.py`` (``make_optimizer`` and
 ``ShardedTrainer``) at dp = sp = tp = 1.  The JAX trainer shards one jitted
-step over a mesh; this one runs eagerly on one device, and any other mesh
-raises ``NotImplementedError`` (multi-GPU dp/tp/sp is queued in ROADMAP.md).
+step over a mesh; this one runs on one device, and any other mesh raises
+``NotImplementedError`` (multi-GPU dp/tp/sp is queued in ROADMAP.md).  On
+the card the step is one captured program, as the JAX step is one ``jit``
+program: forward, backward, clip and adamw replay as one CUDA graph
+(:meth:`ShardedTrainer.step`).  On the CPU it runs eagerly.
 
 Optimizer parity with optax (read from the installed optax 0.2.6):
 ``optax.adamw`` decays every parameter with ``weight_decay=1e-4`` (torch's
@@ -16,7 +19,7 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 from functools import partial
-from typing import Callable, Iterable, Optional, Tuple
+from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,8 +28,12 @@ import torch.nn.functional as F
 from gpuschedule_tpu_torch import resolve_device
 from gpuschedule_tpu_torch.data.loader import synthetic_lm_batches
 from gpuschedule_tpu_torch.models.transformer import build_model, lm_config
+from gpuschedule_tpu_torch.ops import launches
 
 ADAMW_WEIGHT_DECAY = 1e-4  # optax.adamw's default
+# The JAX package's mesh axes (``make_mesh``), outermost first; this trainer
+# is the mesh of size 1 on each.
+MESH_AXES = ("pp", "dp", "sp", "tp")
 
 
 def lr_factor(count: int, *, warmup_steps: int = 0, decay_steps: Optional[int] = None) -> float:
@@ -64,11 +71,16 @@ class Optimizer:
     schedule: torch.optim.lr_scheduler.LambdaLR
     grad_clip: Optional[float]
 
-    def step(self) -> None:
+    def update(self) -> None:
+        """Clip and adamw: the part of :meth:`step` that runs on the device
+        alone, so a CUDA graph can hold it."""
         if self.grad_clip is not None:
             params = [p for g in self.adamw.param_groups for p in g["params"]]
             clip_by_global_norm(params, self.grad_clip)
         self.adamw.step()
+
+    def step(self) -> None:
+        self.update()
         self.schedule.step()
 
     def zero_grad(self) -> None:
@@ -82,14 +94,34 @@ def make_optimizer(
     warmup_steps: int = 0,
     decay_steps: Optional[int] = None,
     grad_clip: Optional[float] = None,
+    capturable: Optional[bool] = None,
 ) -> Optimizer:
     """adamw with linear warmup over ``warmup_steps``, cosine decay to zero
     over ``decay_steps`` (counted after warmup) and global-norm clipping at
-    ``grad_clip``, all opt-in; the defaults are plain ``optax.adamw``."""
+    ``grad_clip``, all opt-in; the defaults are plain ``optax.adamw``.
+
+    ``capturable`` defaults to whether the parameters are on a CUDA device.
+    A capturable optimizer keeps its step count and learning rate on the
+    device, so a CUDA graph can replay the update, and is PyTorch's fused
+    adamw: one kernel a parameter group and pass over its tensors (the
+    capturable multi-tensor form makes extra passes for the bias
+    corrections it keeps on the device).  The schedule writes each
+    scheduled rate into the rate tensor with ``fill_`` between replays; its
+    base rate stays a Python float (``initial_lr``), so computing the next
+    rate reads nothing back from the device.  Otherwise the optimizer is
+    the multi-tensor adamw with a Python rate, the form the CPU parity
+    tests hold against optax."""
+    params = list(params)
+    if capturable is None:
+        capturable = params[0].is_cuda
     adamw = torch.optim.AdamW(
-        params, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8,
-        weight_decay=ADAMW_WEIGHT_DECAY,
+        params,
+        lr=torch.tensor(learning_rate, device=params[0].device) if capturable else learning_rate,
+        betas=(0.9, 0.999), eps=1e-8, weight_decay=ADAMW_WEIGHT_DECAY,
+        capturable=capturable, fused=capturable,
     )
+    for group in adamw.param_groups:
+        group["initial_lr"] = learning_rate
     sched = torch.optim.lr_scheduler.LambdaLR(
         adamw, partial(lr_factor, warmup_steps=warmup_steps, decay_steps=decay_steps)
     )
@@ -102,6 +134,17 @@ class TrainState:
 
     model: torch.nn.Module
     optimizer: Optimizer
+
+
+@dataclass
+class _Captured:
+    """One captured step: the graph, its static token buffer and loss, and
+    the launches of our kernels that its capture recorded."""
+
+    graph: "torch.cuda.CUDAGraph"
+    tokens: torch.Tensor
+    loss: torch.Tensor
+    recorded: launches.Recorded
 
 
 class ShardedTrainer:
@@ -150,6 +193,10 @@ class ShardedTrainer:
         self.opt_kwargs = dict(
             warmup_steps=warmup_steps, decay_steps=decay_steps, grad_clip=grad_clip
         )
+        # the state the graphs below belong to, and its graphs by batch key
+        # (None: warmed up, not captured yet)
+        self._graph_state: Optional[TrainState] = None
+        self._graphs: Dict[tuple, Optional[_Captured]] = {}
 
     def init(self, seed: int = 0) -> TrainState:
         """A fresh model and optimizer, parameters drawn from a generator
@@ -183,9 +230,62 @@ class ShardedTrainer:
 
     def step(self, state: TrainState, tokens: torch.Tensor) -> Tuple[TrainState, torch.Tensor]:
         """One optimizer step; returns ``(state, loss)``.  The loss stays on
-        the device (no host sync): callers fence when they need a value."""
+        the device (no host sync): callers fence when they need a value.
+
+        On the CPU the step runs eagerly.  On the card it is one CUDA graph,
+        as the JAX step is one ``jit`` program: the first call for a state
+        and a batch shape and dtype runs eagerly on a side stream (it builds
+        the kernels and adamw's state), the second captures forward,
+        backward, clip and adamw into a graph and replays it once, and every
+        later call copies the batch into the graph's static buffer and
+        replays.  Each call is one real optimizer step.  A new batch shape
+        or dtype captures a new graph, as ``jit`` retraces; a new state
+        drops the graphs of the old one.  A capture that fails raises."""
+        if self.device.type != "cuda":
+            return self._eager_step(state, tokens)
+        if state is not self._graph_state:
+            self._graphs.clear()
+            self._graph_state = state
+        key = (tuple(tokens.shape), tokens.dtype)
+        if key not in self._graphs:
+            self._graphs[key] = None
+            return self._warm_up(state, tokens)
+        captured = self._graphs[key]
+        if captured is None:
+            captured = self._graphs[key] = self._capture(state, tokens)
+        captured.tokens.copy_(tokens)
+        captured.graph.replay()
+        launches.replayed(captured.recorded)
+        state.optimizer.schedule.step()
+        return state, captured.loss.clone()
+
+    def _eager_step(self, state: TrainState, tokens: torch.Tensor) -> Tuple[TrainState, torch.Tensor]:
+        """The step as plain PyTorch calls, one launch at a time."""
         state.optimizer.zero_grad()
         loss = self.loss(state.model(tokens), tokens)
         loss.backward()
         state.optimizer.step()
         return state, loss.detach()
+
+    def _warm_up(self, state: TrainState, tokens: torch.Tensor) -> Tuple[TrainState, torch.Tensor]:
+        """One eager step on a side stream, as PyTorch asks before a capture."""
+        main = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            state, loss = self._eager_step(state, tokens)
+        main.wait_stream(side)
+        return state, loss
+
+    def _capture(self, state: TrainState, tokens: torch.Tensor) -> _Captured:
+        """Capture forward, backward, clip and adamw on ``tokens``' shape.
+        Nothing runs while a graph is captured, so the launches the wrappers
+        count meanwhile become the graph's own, counted on its replays."""
+        static = tokens.clone()
+        state.optimizer.zero_grad()  # the grads are allocated in the graph's pool
+        graph = torch.cuda.CUDAGraph()
+        with launches.recording() as recorded, torch.cuda.graph(graph):
+            loss = self.loss(state.model(static), static)
+            loss.backward()
+            state.optimizer.update()
+        return _Captured(graph, static, loss.detach(), recorded)

@@ -86,22 +86,27 @@ def time_callable(fn, *args, iters: int = 8, warmup: int = 2, device=None) -> fl
 def device_ms_per_launch(fn, kernel: str, launches: int = 5):
     """(ms per launch, kernel names seen) of the device kernels whose name
     holds ``kernel`` over ``launches`` calls of ``fn`` in a
-    ``torch.profiler`` window; ms is None if the profiler saw no such kernel."""
+    ``torch.profiler`` window; ms is None if the profiler saw no such kernel.
+    ``fn`` launches at least one kernel, so a window that delivered no
+    device activity at all lost its records: it is taken once more."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(launches):
-            fn()
-        torch.cuda.synchronize()
-    names, total = set(), 0.0
-    for evt in prof.events():
-        if evt.device_type == DeviceType.CUDA and not getattr(evt, "is_user_annotation", False):
-            names.add(evt.name)
-            if kernel in evt.name:
-                total += evt.time_range.elapsed_us() / 1e3
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(launches):
+                fn()
+            torch.cuda.synchronize()
+        names, total = set(), 0.0
+        for evt in prof.events():
+            if evt.device_type == DeviceType.CUDA and not getattr(evt, "is_user_annotation", False):
+                names.add(evt.name)
+                if kernel in evt.name:
+                    total += evt.time_range.elapsed_us() / 1e3
+        if names:
+            break
     hits = [n for n in names if kernel in n]
     return (total / launches if hits else None), sorted(names)
 
@@ -133,7 +138,8 @@ def measure_step_time(
     device=None,
 ) -> float:
     """Median seconds per optimizer step of ``model_name`` on one device
-    (``cuda`` unless ``device="cpu"``), after ``warmup`` steps."""
+    (``cuda`` unless ``device="cpu"``), after ``warmup`` steps: at least the
+    two that warm up and capture the step on the card."""
     trainer = ShardedTrainer(
         model_name, batch_size=batch_size, seq_len=seq_len,
         flash_attn=flash_attn, device=device,
@@ -141,7 +147,7 @@ def measure_step_time(
     state = trainer.init(seed=0)
     batch = trainer.make_batch(seed=0)
     loss = None
-    for _ in range(max(1, warmup)):
+    for _ in range(max(2, warmup)):
         state, loss = trainer.step(state, batch)
     _fence(loss)
     step_s, _ = time_steps(trainer.step, state, batch, iters=iters, repeats=repeats)
@@ -162,16 +168,18 @@ def capture_trace(
 
     The deep-inspection path beside :func:`measure_step_time`: the median
     comes from there, the per-kernel timeline from here.  The traced step is
-    the measured one (same trainer, batch and sequence length), after one
-    warm-up step; on the card the window records device activity and ends in
-    a synchronize, so every step's kernels lie inside it.  View the file in
-    ui.perfetto.dev or chrome://tracing."""
+    the measured one (same trainer, batch and sequence length), after the
+    two warm-up steps that build and capture it, so the window holds replays
+    of the captured step; on the card the window records device activity
+    and ends in a synchronize, so every step's kernels lie inside it.  View
+    the file in ui.perfetto.dev or chrome://tracing."""
     from torch.profiler import ProfilerActivity, profile
 
     trainer = ShardedTrainer(model_name, batch_size=batch_size, seq_len=seq_len, device=device)
     state = trainer.init(seed=0)
     batch = trainer.make_batch(seed=0)
-    state, loss = trainer.step(state, batch)
+    for _ in range(2):
+        state, loss = trainer.step(state, batch)
     _fence(loss)
     cuda = trainer.device.type == "cuda"
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])

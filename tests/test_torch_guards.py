@@ -1,6 +1,7 @@
 """Guards of the port: the device rule, unported options, import isolation."""
 
 import ast
+import json
 import subprocess
 import sys
 from pathlib import Path
@@ -48,6 +49,26 @@ def test_entry_points_default_to_the_card(no_cuda, tmp_path):
     with pytest.raises(SystemExit, match="no CUDA device"):
         main(["profile", "--model", "transformer-tiny", "--curves", str(tmp_path / "c.json")])
     assert not (tmp_path / "c.json").exists()
+
+
+def test_bench_has_no_cpu_fallback(no_cuda, capsys):
+    """With no card, the bench's default run measures nothing anywhere: it
+    prints one failed line and exits non-zero, and a child raises."""
+    from gpuschedule_tpu_torch import bench
+
+    for argv in ([], ["--flash-smoke"], ["--longctx"]):
+        assert bench.main(argv) == 1
+        lines = capsys.readouterr().out.strip().splitlines()
+        assert len(lines) == 1 and "no CUDA device" in json.loads(lines[0])["failed"]
+    for child in (bench.child_main, bench.child_flash, bench.child_longctx):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            child("transformer-tiny")
+
+
+def test_scans_cover_the_bench_and_the_card_table():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"gpuschedule_tpu_torch/bench.py", "gpuschedule_tpu_torch/cluster/cards.py",
+            "chip_smoke.py"} <= names
 
 
 def test_unported_options_raise(tmp_path):
