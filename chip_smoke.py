@@ -7,10 +7,11 @@ Phases, each fatal on failure (exit code 1, no result line):
 
 1. device — the card's name, and its name and power limit from nvidia-smi;
 2. build — nvcc builds ``ops/csrc/*.cu`` from this checkout; each kernel's
-   registers and spills from ``-Xptxas -v`` (the bf16 tensor-core kernels
-   must not spill at D = 32 and 64), and the count of ``HMMA`` instructions
-   in each kernel's SASS from ``cuobjdump`` (the bf16 forward, dq and dk/dv
-   kernels must have some); the same for the probe kernels, with their
+   registers and spills from ``-Xptxas -v`` (the bf16 tensor-core kernels,
+   in both output forms, must not spill at D = 32 and 64), and the count of
+   ``HMMA`` instructions in each kernel's SASS from ``cuobjdump`` (the bf16
+   forward, dq and dk/dv kernels must have some, in both output forms); the
+   same for the probe kernels, with their
    static and dynamic shared memory (neither may spill, and the xᵀx kernel
    must have ``HMMA``);
 3. parity — each CUDA kernel (forward, dq, dk/dv) against its plain PyTorch
@@ -73,8 +74,30 @@ Phases, each fatal on failure (exit code 1, no result line):
    window of the long-context step (where its time goes, its busy share),
    whose launches of each kernel must be LONGCTX_PER_STEP, as the
    counters' are;
-11. a ``{"train": ...}`` line, a ``{"kernels": [...]}`` line (all five
-   kernels), and last the ``{"ok": true, "device": {...}}`` line.
+11. ring — the sequence-parallel path: (i) the f32-output forms of K1, K2
+   and K3 (bf16 in, f32 out: the ring's chunk ops) against their plain
+   versions at the ring's chunk shape for transformer-xlong at sp = 4
+   (1, 8192, 8, 64), causal and full, and at two ragged shapes (D = 32 and
+   96), within phase 3's bounds, each output f32 and, rounded to bf16, the
+   bf16 form's to the bit; timed beside their bounds, plain versions and
+   SDPA's forward; (ii) ``ring_flash_attention_in_process`` at sp = 4 on
+   (1, 32768, 8, 64) bf16 causal, forward and backward, against the flash
+   op (K1-K3 on the whole sequence) within phase 3's bounds, tile bound
+   included, with exactly RING_PAIRS launches of each f32 form a pass (the
+   4 diagonal and 6 past pairs; the 6 future pairs launch nothing), timed
+   beside the flash op; (iii) the slice at full width: transformer-xlong
+   b1 x S32768 (remat) with that ring as its attention core, forward and
+   backward on one batch, against the flash model of the same parameters:
+   the loss within LOSS_RTOL, every parameter's gradient within
+   RING_GRAD_RTOL (relative L2), and RING_MODEL_LAUNCHES of the f32 forms
+   (its main path: the counts are set to 0 just before it); (iv) the dense
+   ring in process at sp = 4 on transformer-long's shape against the dense
+   oracle; (v) the ``train`` CLI under ``torchrun`` on a one-rank NCCL mesh
+   (``--ring-attn --flash-attn --sp 1``, 3 steps): a finite, falling loss;
+   a ``{"ring": ...}`` line;
+12. a ``{"train": ...}`` line, a ``{"kernels": [...]}`` line (the five
+   kernels and the three f32 forms), and last the ``{"ok": true, "device":
+   {...}}`` line.
 
 Exits non-zero when CUDA is unavailable or the port cannot be imported.
 """
@@ -120,6 +143,26 @@ LONGCTX_SHAPE = (1, 32768, 8, 64)  # transformer-xlong: d_model 512 / 8 heads, S
 LONGCTX_PER_STEP = {"flash_fwd": 12, "flash_bwd_dq": 6, "flash_bwd_dkdv": 6}  # 6 layers, remat
 BENCH_TIMEOUT_S = 760  # above the bench's own budget, which bounds its children
 
+# the ring's f32-output forms: counter name -> (kernel, replaces, the JAX call form)
+F32_FORMS = {
+    "flash_fwd_f32": ("fwd_mma_kernel", "gpuschedule_tpu/ops/flash_attention.py:98",
+                      "flash_chunk_fwd :519"),
+    "flash_bwd_dq_f32": ("dq_mma_kernel", "gpuschedule_tpu/ops/flash_attention.py:155",
+                         "flash_chunk_bwd :539"),
+    "flash_bwd_dkdv_f32": ("dkdv_mma_kernel", "gpuschedule_tpu/ops/flash_attention.py:202",
+                           "flash_chunk_bwd :539"),
+}
+RING_SP = 4
+RING_CHUNK_SHAPE = (1, 8192, 8, 64)  # transformer-xlong's S = 32768 over sp = 4
+RING_PAIRS = RING_SP * (RING_SP + 1) // 2  # diagonal and past pairs of a causal pass
+# 6 layers: a pass in each forward, again in each remat recompute, and in each backward
+RING_MODEL_LAUNCHES = {"flash_fwd_f32": 120, "flash_bwd_dq_f32": 60, "flash_bwd_dkdv_f32": 60}
+# ring vs flash model, each parameter's gradient, relative L2: 3x the largest
+# sound reading on the card (1.0e-2, a query kernel's; median 3.2e-3), both
+# models' gradients passing through bf16 activations rounded at other points
+RING_GRAD_RTOL = 3e-2
+CLI_TIMEOUT_S = 300
+
 PROBE_SOURCE = "gpuschedule_tpu_torch/ops/csrc/overhead_probe.cu"
 PROBE_KERNELS = {
     "probe_copy": ("probe_copy_kernel", "tools/overhead_probe.py:54"),
@@ -147,19 +190,23 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def attention_cost(b, s, h, d, causal, esize, kernel):
+def attention_cost(b, s, h, d, causal, esize, kernel, out_esize=None):
     """(flops, bytes) the kernel's function needs on these inputs: each
-    input read once, each output written once; causal counts the S(S+1)/2
-    (row, key) pairs that are not masked."""
+    input read once (``esize`` bytes an element), each output written once
+    (``out_esize``, default ``esize``); causal counts the S(S+1)/2 (row,
+    key) pairs that are not masked.  ``kernel`` is a counter name; the f32
+    forms (``*_f32``) cost what their kernel does."""
+    kernel = kernel.removesuffix("_f32")
     pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
     n = b * s * h * d * esize
+    n_out = b * s * h * d * (out_esize or esize)
     rows = b * h * s * 4
     if kernel == "flash_fwd":      # QK^T, PV; reads q k v, writes o and lse
-        return 4 * d * pairs, 3 * n + n + rows
+        return 4 * d * pairs, 3 * n + n_out + rows
     if kernel == "flash_bwd_dq":   # QK^T, dO V^T, ds K; reads q k v dO lse delta, writes dq
-        return 6 * d * pairs, 4 * n + 2 * rows + n
+        return 6 * d * pairs, 4 * n + 2 * rows + n_out
     # QK^T, dO V^T, p^T dO, ds^T q; reads q k v dO lse delta, writes dk dv
-    return 8 * d * pairs, 4 * n + 2 * rows + 2 * n
+    return 8 * d * pairs, 4 * n + 2 * rows + 2 * n_out
 
 
 def bound(flops, nbytes, peaks):
@@ -202,11 +249,16 @@ def ptxas_report(log_text: str) -> dict:
     return out
 
 
-def mangled_name(names, kernel: str, d: int):
+# a tensor-core kernel's output type as it is mangled after its head dim
+MANGLED_OUT = {"bf16": "13__nv_bfloat16E", "f32": "fE"}
+
+
+def mangled_name(names, kernel: str, d: int, out: str = ""):
     """The mangled name among ``names`` of ``kernel`` at head dim ``d``
-    (either dtype), or None."""
+    whose template arguments go on with ``out`` (``MANGLED_OUT``: the
+    tensor-core kernels' output type), or None."""
     for name in names:
-        if f"{len(kernel)}{kernel}I" in name and f"Li{d}E" in name:
+        if f"{len(kernel)}{kernel}I" in name and f"Li{d}E{out}" in name:
             return name
     return None
 
@@ -297,22 +349,34 @@ def tile_rel_err(torch, got, ref) -> float:
     return err.max().item()
 
 
-def parity_errors(torch, fa, dev, shape, dtype, causal, seed) -> dict:
+def parity_errors(torch, fa, dev, shape, dtype, causal, seed, out_dtype=None) -> dict:
     """The three flash kernels against their plain versions on seeded
-    inputs of ``shape``: for out, dq, dk and dv the max abs error
-    (``abs``), that error over the plain tensor's largest entry (``rel``)
-    and :func:`tile_rel_err` (``tile``); the lse rows' max abs error."""
+    inputs of ``shape``, outputs in ``out_dtype`` (None: the inputs'): for
+    out, dq, dk and dv the max abs error (``abs``), that error over the
+    plain tensor's largest entry (``rel``) and :func:`tile_rel_err`
+    (``tile``); the lse rows' max abs error; the outputs' dtypes
+    (``dtypes``).  With ``out_dtype`` f32 from bf16 inputs (the f32 forms)
+    also whether each output, rounded to bf16, is the bf16 form's to the bit
+    (``bitwise``): the two forms differ only in the epilogue's store."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     q, k, v, g = (torch.randn(shape, generator=gen, device=dev).to(dtype) for _ in range(4))
-    out, lse = fa.flash_fwd(q, k, v, causal=causal)
-    out_p, lse_p = fa.flash_fwd_plain(q, k, v, causal)
+    kw = {"out_dtype": out_dtype}
+    out, lse = fa.flash_fwd(q, k, v, causal=causal, **kw)
+    out_p, lse_p = fa.flash_fwd_plain(q, k, v, causal, **kw)
     delta = fa.attention_delta(out_p, g)
-    dq = fa.flash_bwd_dq(q, k, v, g, lse_p, delta, causal=causal)
-    dk, dv = fa.flash_bwd_dkdv(q, k, v, g, lse_p, delta, causal=causal)
-    dq_p = fa.flash_bwd_dq_plain(q, k, v, g, lse_p, delta, causal)
-    dk_p, dv_p = fa.flash_bwd_dkdv_plain(q, k, v, g, lse_p, delta, causal)
+    dq = fa.flash_bwd_dq(q, k, v, g, lse_p, delta, causal=causal, **kw)
+    dk, dv = fa.flash_bwd_dkdv(q, k, v, g, lse_p, delta, causal=causal, **kw)
+    dq_p = fa.flash_bwd_dq_plain(q, k, v, g, lse_p, delta, causal, **kw)
+    dk_p, dv_p = fa.flash_bwd_dkdv_plain(q, k, v, g, lse_p, delta, causal, **kw)
     torch.cuda.synchronize()
-    errs = {"lse": (lse - lse_p).abs().max().item()}
+    errs = {"lse": (lse - lse_p).abs().max().item(),
+            "dtypes": {str(t.dtype) for t in (out, dq, dk, dv, out_p, dq_p, dk_p, dv_p)}}
+    if out_dtype == torch.float32 and dtype == torch.bfloat16:
+        narrow = (fa.flash_fwd(q, k, v, causal=causal)[0],
+                  fa.flash_bwd_dq(q, k, v, g, lse_p, delta, causal=causal),
+                  *fa.flash_bwd_dkdv(q, k, v, g, lse_p, delta, causal=causal))
+        errs["bitwise"] = all(torch.equal(w.to(dtype), n)
+                              for w, n in zip((out, dq, dk, dv), narrow))
     for name, a, b in (("out", out, out_p), ("dq", dq, dq_p), ("dk", dk, dk_p), ("dv", dv, dv_p)):
         diff = (a.float() - b.float()).abs().max().item()
         errs[name] = {"abs": diff, "rel": diff / max(b.float().abs().max().item(), 1e-6),
@@ -350,14 +414,22 @@ def captured_update_check(torch, trainer, state, tokens, make_optimizer):
     return state, rel
 
 
-def kernel_parity(torch, fa, dev, shape, dtype, causal, seed) -> dict:
+def kernel_parity(torch, fa, dev, shape, dtype, causal, seed, out_dtype=None) -> dict:
     """:func:`parity_errors`, held to the bounds: out's max abs error below
     FWD_TOL, lse's below LSE_TOL, each gradient's below GRAD_TOL of the
     plain gradient's largest entry, and every output's tile error below
-    TILE_RTOL.  Returns each kernel's max abs error and largest tile error."""
-    e = parity_errors(torch, fa, dev, shape, dtype, causal, seed)
+    TILE_RTOL; with ``out_dtype`` every output in it, and the f32 forms
+    bitwise the bf16 forms once rounded.  Returns each kernel's max abs
+    error and largest tile error."""
+    e = parity_errors(torch, fa, dev, shape, dtype, causal, seed, out_dtype)
+    if out_dtype is not None:
+        check(e["dtypes"] == {str(out_dtype)}, f"outputs at {shape} are {e['dtypes']}, "
+                                               f"not {out_dtype}")
+    if "bitwise" in e:
+        check(e["bitwise"], f"an f32 form rounded to bf16 is not the bf16 form at {shape}")
     out, dq, dk, dv = e["out"], e["dq"], e["dk"], e["dv"]
-    log(f"parity {shape} {dtype} causal={causal}: out {out['abs']:.3e} lse {e['lse']:.3e} "
+    log(f"parity {shape} {dtype} causal={causal} out_dtype={out_dtype} bitwise "
+        f"{e.get('bitwise')}: out {out['abs']:.3e} lse {e['lse']:.3e} "
         f"dq {dq['abs']:.3e} ({dq['rel']:.2e} rel) dk {dk['abs']:.3e} ({dk['rel']:.2e}) "
         f"dv {dv['abs']:.3e} ({dv['rel']:.2e}); by 64-row tile out {out['tile']:.2e} "
         f"dq {dq['tile']:.2e} dk {dk['tile']:.2e} dv {dv['tile']:.2e}")
@@ -612,6 +684,242 @@ def longctx_kernels(torch, fa, dev, ms, peaks, F) -> dict:
     return {"max_abs_err": errs["abs"], "kernels": kernels}
 
 
+def f32_forms(torch, fa, dev, ms, peaks, F) -> dict:
+    """Phase 11 (i): the f32-output forms of K1-K3 (bf16 inputs, the ring's
+    chunk ops) against their plain versions (:func:`kernel_parity` with
+    ``out_dtype`` f32: phase 3's bounds, the dtype, the bf16 form to the
+    bit once rounded) at the ring's chunk shape, causal (a diagonal pair)
+    and full (a past pair), and at two ragged shapes; then their event
+    times at the chunk shape beside their plain versions, bounds (f32
+    outputs: 4 bytes an element written) and SDPA's forward."""
+    from gpuschedule_tpu_torch.profiler import time_callable
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    errs = {name: 0.0 for name in F32_FORMS}
+    tiles = {name: 0.0 for name in F32_FORMS}
+    cases = [(RING_CHUNK_SHAPE, True), (RING_CHUNK_SHAPE, False),
+             ((2, 1000, 4, 32), True), ((1, 333, 2, 96), False)]
+    for i, (shape, causal) in enumerate(cases):
+        e = kernel_parity(torch, fa, dev, shape, bf16, causal, 500 + i, out_dtype=f32)
+        for name in KERNELS:
+            errs[f"{name}_f32"] = max(errs[f"{name}_f32"], e["abs"][name])
+            tiles[f"{name}_f32"] = max(tiles[f"{name}_f32"], e["tile"][name])
+    b, s, h, d = RING_CHUNK_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(510)
+    q, k, v, g = (torch.randn(RING_CHUNK_SHAPE, generator=gen, device=dev).to(bf16)
+                  for _ in range(4))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    times = {name: {} for name in F32_FORMS}
+    for causal in (False, True):
+        out, lse = fa.flash_fwd(q, k, v, causal=causal, out_dtype=f32)
+        delta = fa.attention_delta(out.to(bf16), g)
+        calls = {
+            "flash_fwd_f32": (lambda: fa.flash_fwd(q, k, v, causal=causal, out_dtype=f32),
+                              lambda: fa.flash_fwd_plain(q, k, v, causal, out_dtype=f32)),
+            "flash_bwd_dq_f32": (
+                lambda: fa.flash_bwd_dq(q, k, v, g, lse, delta, causal=causal, out_dtype=f32),
+                lambda: fa.flash_bwd_dq_plain(q, k, v, g, lse, delta, causal, out_dtype=f32)),
+            "flash_bwd_dkdv_f32": (
+                lambda: fa.flash_bwd_dkdv(q, k, v, g, lse, delta, causal=causal, out_dtype=f32),
+                lambda: fa.flash_bwd_dkdv_plain(q, k, v, g, lse, delta, causal,
+                                                out_dtype=f32)),
+        }
+        sdpa_ms = ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal), 10)
+        pair = "diagonal" if causal else "past"
+        for name, (kernel, plain) in calls.items():
+            flops, nbytes = attention_cost(b, s, h, d, causal, 2, name, out_esize=4)
+            bound_ms, bound_by = bound(flops, nbytes, peaks)
+            k_ms = ms(kernel, 10)
+            p_ms = time_callable(plain, iters=1, warmup=1, device=dev) * 1e3
+            times[name][pair] = {"shape": list(RING_CHUNK_SHAPE), "causal": causal, "ms": k_ms,
+                                 "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                                 "library_ms": sdpa_ms if name == "flash_fwd_f32" else None}
+            log(f"time {name} {RING_CHUNK_SHAPE} bf16 in, f32 out, {pair} pair: {k_ms:.4f} ms "
+                f"(plain {p_ms:.2f} ms, bound {bound_ms:.4f} ms by {bound_by}, "
+                f"{k_ms / bound_ms:.2f}x the bound)")
+        log(f"time sdpa forward {RING_CHUNK_SHAPE} bf16 causal={causal}: {sdpa_ms:.4f} ms")
+    return {"max_abs_err": errs, "tile_rel_err": tiles, "times": times}
+
+
+def _fwd_bwd(torch, fn, q, k, v, g):
+    """(out, (dq, dk, dv)) of the attention op ``fn`` with cotangent g."""
+    q, k, v = (x.detach().requires_grad_(True) for x in (q, k, v))
+    out = fn(q, k, v)
+    return out.detach(), torch.autograd.grad(out, (q, k, v), g)
+
+
+def ring_vs_flash(torch, fa, dev, ms) -> dict:
+    """Phase 11 (ii): ``ring_flash_attention_in_process`` at sp = RING_SP
+    on the long-context shape against the flash op on the whole sequence
+    (K1-K3), forward and backward: out within FWD_TOL, each gradient within
+    GRAD_TOL of the flash gradient's largest entry, every 64-row tile
+    within TILE_RTOL; RING_PAIRS launches of each f32 form a pass and none
+    of the bf16 forms.  Then both timed (CUDA events), forward alone and
+    forward with backward."""
+    from gpuschedule_tpu_torch.parallel.ringflash import ring_flash_attention_in_process
+
+    gen = torch.Generator(device=dev).manual_seed(600)
+    q, k, v, g = (torch.randn(LONGCTX_SHAPE, generator=gen, device=dev).to(torch.bfloat16)
+                  for _ in range(4))
+    ring = lambda q, k, v: ring_flash_attention_in_process(  # noqa: E731
+        q, k, v, sp=RING_SP, causal=True)
+    flash = lambda q, k, v: fa.flash_attention(q, k, v, causal=True)  # noqa: E731
+    fa.reset_launches()
+    out_r, grads_r = _fwd_bwd(torch, ring, q, k, v, g)
+    torch.cuda.synchronize()
+    per_pass = dict(fa.LAUNCHES)
+    log(f"launches of one ring pass (forward and backward), sp={RING_SP}: {per_pass}")
+    check(per_pass == {**dict.fromkeys(KERNELS, 0), **dict.fromkeys(F32_FORMS, RING_PAIRS)},
+          f"a ring pass launched {per_pass}, not {RING_PAIRS} of each f32 form and nothing else")
+    out_f, grads_f = _fwd_bwd(torch, flash, q, k, v, g)
+    torch.cuda.synchronize()
+    errs = {"out": (out_r.float() - out_f.float()).abs().max().item()}
+    tiles = {"out": tile_rel_err(torch, out_r, out_f)}
+    for name, a, b in zip(("dq", "dk", "dv"), grads_r, grads_f):
+        errs[name] = (a.float() - b.float()).abs().max().item() / b.float().abs().max().item()
+        tiles[name] = tile_rel_err(torch, a, b)
+    log(f"ring-flash sp={RING_SP} vs the flash op {LONGCTX_SHAPE} bf16 causal: out "
+        f"{errs['out']:.3e} abs, dq {errs['dq']:.2e} dk {errs['dk']:.2e} dv {errs['dv']:.2e} of "
+        f"the largest entry; by 64-row tile {tiles}")
+    check(errs["out"] < FWD_TOL and max(errs["dq"], errs["dk"], errs["dv"]) < GRAD_TOL,
+          "the ring-flash disagrees with the flash op")
+    check(max(tiles.values()) < TILE_RTOL,
+          f"a 64-row tile of the ring-flash disagrees with the flash op: {tiles}")
+    with torch.no_grad():
+        times = {"ring_fwd_ms": ms(lambda: ring(q, k, v), 5),
+                 "flash_fwd_ms": ms(lambda: flash(q, k, v), 5)}
+    times["ring_fwd_bwd_ms"] = ms(lambda: _fwd_bwd(torch, ring, q, k, v, g), 5)
+    times["flash_fwd_bwd_ms"] = ms(lambda: _fwd_bwd(torch, flash, q, k, v, g), 5)
+    log(f"time ring-flash sp={RING_SP} in process {LONGCTX_SHAPE} bf16 causal: forward "
+        f"{times['ring_fwd_ms']:.4f} ms (the flash op {times['flash_fwd_ms']:.4f}), forward "
+        f"and backward {times['ring_fwd_bwd_ms']:.4f} ms ({times['flash_fwd_bwd_ms']:.4f})")
+    return {"shape": list(LONGCTX_SHAPE), "sp": RING_SP, "launches_per_pass": per_pass,
+            "errors": errs, "tile_rel_err": tiles, **times}
+
+
+def ring_model(torch, fa, dev) -> dict:
+    """Phase 11 (iii), the slice at full width: transformer-xlong (remat) at
+    b1 x S32768 with the in-process ring-flash at sp = RING_SP as its
+    attention core, forward and backward on one batch (after one warm-up
+    of each model, timed by the host clock), against the flash
+    model of the same parameters: the loss within LOSS_RTOL, every
+    parameter's gradient within RING_GRAD_RTOL (relative L2; a key bias,
+    whose exact gradient is 0, against its key kernel's).  Its launches
+    of the f32 forms (the counts set to 0 just before, read just after)
+    are RING_MODEL_LAUNCHES."""
+    from functools import partial
+
+    from gpuschedule_tpu_torch.data import synthetic_lm_batches
+    from gpuschedule_tpu_torch.models import build_model
+    from gpuschedule_tpu_torch.parallel import ShardedTrainer
+    from gpuschedule_tpu_torch.parallel.ringflash import ring_flash_attention_in_process
+
+    b, s = LONGCTX_SHAPE[:2]
+    with dev:
+        ring_lm, cfg = build_model("transformer-xlong", attn_fn=partial(
+            ring_flash_attention_in_process, sp=RING_SP, causal=True))
+        flash_lm, _ = build_model("transformer-xlong",
+                                  attn_fn=partial(fa.flash_attention, causal=True))
+    ring_lm.reset_parameters(torch.Generator(device=dev).manual_seed(0))
+    flash_lm.load_state_dict(ring_lm.state_dict())
+    tokens = torch.from_numpy(next(synthetic_lm_batches(
+        batch_size=b, seq_len=s, vocab=cfg.vocab, num_batches=1, seed=0))).long().to(dev)
+
+    def fwd_bwd(model):
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = ShardedTrainer.loss(model(tokens), tokens)
+        loss.backward()
+        torch.cuda.synchronize()
+        return loss.item(), time.perf_counter() - t0
+
+    for model in (ring_lm, flash_lm):  # warm-ups: allocator and libraries at this size
+        fwd_bwd(model)
+    fa.reset_launches()                           # the slice's main path starts here
+    loss_r, ring_s = fwd_bwd(ring_lm)
+    launches = dict(fa.LAUNCHES)                  # ... and ends here
+    loss_f, flash_s = fwd_bwd(flash_lm)
+    norm = torch.linalg.vector_norm
+    flash_grads = {name: p.grad.float() for name, p in flash_lm.named_parameters()}
+    # a key bias's exact gradient is 0 (a shift shared by every key of a row
+    # leaves the softmax as it is), so both models hold rounding noise
+    # there: its error is weighed against its layer's key kernel gradient
+    scale = {name: norm(flash_grads[name.removesuffix("bias") + "kernel"]
+                        if name.endswith("attn.key.bias") else g) for name, g in flash_grads.items()}
+    grad_rel = {name: (norm(p.grad.float() - flash_grads[name]) / scale[name]).item()
+                for name, p in ring_lm.named_parameters()}
+    worst = max(grad_rel, key=grad_rel.get)
+    rel_loss = abs(loss_r - loss_f) / abs(loss_f)
+    log(f"transformer-xlong b{b} S{s}, ring-flash sp={RING_SP} vs flash: loss {loss_r:.6f} vs "
+        f"{loss_f:.6f} (rel {rel_loss:.2e}, bound {LOSS_RTOL}); largest gradient error "
+        f"{grad_rel[worst]:.3e} relative L2 ({worst}; bound {RING_GRAD_RTOL}), median "
+        f"{sorted(grad_rel.values())[len(grad_rel) // 2]:.3e}; forward and backward "
+        f"{ring_s * 1e3:.1f} ms vs {flash_s * 1e3:.1f} ms; launches {launches}")
+    check(math.isfinite(loss_r) and rel_loss < LOSS_RTOL,
+          "the ring-flash model's loss disagrees with the flash model's")
+    check(grad_rel[worst] < RING_GRAD_RTOL,
+          f"the ring-flash model's gradient of {worst} disagrees: {grad_rel[worst]:.3e}")
+    check(launches == {**dict.fromkeys(KERNELS, 0), **RING_MODEL_LAUNCHES},
+          f"the ring-flash model launched {launches}, not {RING_MODEL_LAUNCHES}")
+    out = {"model": "transformer-xlong", "batch": b, "seq": s, "sp": RING_SP, "loss": loss_r,
+           "flash_loss": loss_f, "loss_rel": rel_loss, "grad_rel_max": grad_rel[worst],
+           "grad_rel_max_param": worst, "grad_rel": grad_rel, "launches": launches,
+           "fwd_bwd_ms": ring_s * 1e3, "flash_fwd_bwd_ms": flash_s * 1e3}
+    del ring_lm, flash_lm, tokens
+    torch.cuda.empty_cache()
+    return out
+
+
+def dense_ring(torch, dev) -> dict:
+    """Phase 11 (iv): the dense ring in process at sp = RING_SP on
+    transformer-long's attention shape against the dense oracle, bf16,
+    forward and backward: out within FWD_TOL, gradients within GRAD_TOL of
+    the oracle's largest entry."""
+    from gpuschedule_tpu_torch.ops import dense_attention
+    from gpuschedule_tpu_torch.parallel.ringattn import ring_attention_in_process
+
+    gen = torch.Generator(device=dev).manual_seed(700)
+    q, k, v, g = (torch.randn(MAIN_SHAPE, generator=gen, device=dev).to(torch.bfloat16)
+                  for _ in range(4))
+    out_r, grads_r = _fwd_bwd(torch, lambda q, k, v: ring_attention_in_process(
+        q, k, v, sp=RING_SP, causal=True), q, k, v, g)
+    out_d, grads_d = _fwd_bwd(torch, lambda q, k, v: dense_attention(q, k, v, causal=True),
+                              q, k, v, g)
+    errs = {"out": (out_r.float() - out_d.float()).abs().max().item()}
+    for name, a, b in zip(("dq", "dk", "dv"), grads_r, grads_d):
+        errs[name] = (a.float() - b.float()).abs().max().item() / b.float().abs().max().item()
+    log(f"dense ring sp={RING_SP} vs the dense oracle {MAIN_SHAPE} bf16 causal: {errs}")
+    check(errs["out"] < FWD_TOL and max(errs["dq"], errs["dk"], errs["dv"]) < GRAD_TOL,
+          "the dense ring disagrees with the dense oracle")
+    return {"shape": list(MAIN_SHAPE), "sp": RING_SP, "errors": errs}
+
+
+def ring_cli() -> dict:
+    """Phase 11 (v): ``train --ring-attn --flash-attn --sp 1`` under
+    ``torchrun`` (one rank: a one-rank NCCL mesh), transformer-long b2 x
+    S4096, 3 steps; its summary line must show the mesh and a finite,
+    falling loss."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           "1", "-m", "gpuschedule_tpu_torch", "train", "--model", "transformer-long",
+           "--steps", "3", "--batch-size", "2", "--seq-len", "4096", "--sp", "1",
+           "--ring-attn", "--flash-attn"]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=CLI_TIMEOUT_S, cwd=ROOT)
+    for text in res.stderr.splitlines():
+        print(f"train: {text}", file=sys.stderr)
+    lines = res.stdout.strip().splitlines()
+    log(f"train under torchrun: exit {res.returncode} after {time.perf_counter() - t0:.1f} s; "
+        f"{lines[-1] if lines else 'no output'}")
+    check(res.returncode == 0 and bool(lines), f"train under torchrun exited {res.returncode}")
+    line = json.loads(lines[-1])
+    check(line["mesh"] == {"pp": 1, "dp": 1, "sp": 1, "tp": 1}, f"mesh {line['mesh']}")
+    check(math.isfinite(line["first_loss"]) and math.isfinite(line["last_loss"])
+          and line["last_loss"] < line["first_loss"],
+          f"train under torchrun: loss {line['first_loss']} -> {line['last_loss']}")
+    return line
+
+
 def run() -> dict:
     import torch
 
@@ -667,23 +975,29 @@ def run() -> dict:
     else:
         hmma = hmma_counts(str(_build.build_all()["flash_attention"]), tool)
     build_report = {}
-    for cname in sorted({c for bf, f32, _ in KERNELS.values() for c in (bf, f32)}):
+    # (kernel, its mangled output type, report label): the FMA kernels, then
+    # the tensor-core kernels in both output forms
+    variants = [(f32_name, "", "") for _, f32_name, _ in KERNELS.values()]
+    variants += [(cname, MANGLED_OUT[out], "" if out == "bf16" else ", f32 out")
+                 for cname in TENSOR_CORE_KERNELS for out in ("bf16", "f32")]
+    for cname, tail, label in variants:
         for d in fa.HEAD_DIMS:
-            entry = ptxas.get(mangled_name(ptxas, cname, d), {})
-            n_hmma = None if hmma is None else hmma.get(mangled_name(hmma, cname, d))
-            build_report[f"{cname}<{d}>"] = {**entry, "hmma": n_hmma}
-            log(f"kernel {cname} D={d}: {entry.get('registers')} registers, spill "
+            entry = ptxas.get(mangled_name(ptxas, cname, d, tail), {})
+            n_hmma = None if hmma is None else hmma.get(mangled_name(hmma, cname, d, tail))
+            build_report[f"{cname}<{d}{label}>"] = {**entry, "hmma": n_hmma}
+            log(f"kernel {cname} D={d}{label}: {entry.get('registers')} registers, spill "
                 f"{entry.get('spill_stores')}/{entry.get('spill_loads')} bytes "
                 f"(stores/loads), {n_hmma} HMMA")
-    for cname in TENSOR_CORE_KERNELS:
+    for cname, _, label in variants[len(KERNELS):]:
         for d in fa.HEAD_DIMS:
-            rep = build_report[f"{cname}<{d}>"]
-            check("registers" in rep, f"ptxas reported nothing for {cname} at D={d}")
+            rep = build_report[f"{cname}<{d}{label}>"]
+            check("registers" in rep, f"ptxas reported nothing for {cname} at D={d}{label}")
             if d in NO_SPILL_HEAD_DIMS:
                 check(rep.get("spill_stores", 0) == 0 and rep.get("spill_loads", 0) == 0,
-                      f"{cname} spills at D={d}: {rep}")
+                      f"{cname} spills at D={d}{label}: {rep}")
             if hmma is not None:
-                check((rep["hmma"] or 0) > 0, f"{cname} at D={d} has no HMMA in its SASS")
+                check((rep["hmma"] or 0) > 0,
+                      f"{cname} at D={d}{label} has no HMMA in its SASS")
     probe_ptxas = ptxas_report(_build.build_log("overhead_probe"))
     probe_hmma = None if tool is None else hmma_counts(
         str(_build.build_all()["overhead_probe"]), tool)
@@ -927,6 +1241,13 @@ def run() -> dict:
                       for name in KERNELS}
 
     # --------------------------------------------------------------- 11 --
+    forms = f32_forms(torch, fa, dev, ms, peaks, F)
+    ring = {"card": smi, "f32_forms": forms, "ring_flash": ring_vs_flash(torch, fa, dev, ms),
+            "model": ring_model(torch, fa, dev), "dense_ring": dense_ring(torch, dev),
+            "cli": ring_cli()}
+    print(json.dumps({"ring": ring}))
+
+    # --------------------------------------------------------------- 12 --
     train = {
         "card": smi, "build_s": build_s,
         "flash": {"model": "transformer-long", "batch": 2, "seq": 4096,
@@ -959,6 +1280,12 @@ def run() -> dict:
          **probe_times[name], "bound_ms": probe_bounds[name][0],
          "bound_by": probe_bounds[name][1]}
         for name, (cname, replaces) in PROBE_KERNELS.items()
+    ] + [
+        {"name": f"{cname} (f32 out)", "route": "cuda", "source": SOURCE, "replaces": replaces,
+         "call": call, "launches": ring["model"]["launches"][name],
+         "max_abs_err": forms["max_abs_err"][name], **forms["times"][name]["past"],
+         "diagonal_pair": forms["times"][name]["diagonal"]}
+        for name, (cname, replaces, call) in F32_FORMS.items()
     ]
     print(json.dumps({"train": train}))
     print(json.dumps({"kernels": kernels}))

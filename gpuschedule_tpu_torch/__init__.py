@@ -9,7 +9,7 @@ nothing of ``gpuschedule_tpu``, of which it keeps its own copies.
 Layering:
     models/     model configs (own copy) and the transformer LM modules
     ops/        dense oracle, flash attention: CUDA kernels + plain versions
-    parallel/   optimizer and the single-device train step
+    parallel/   mesh, sp rings (dense and flash), optimizer and the train step
     data/       synthetic token batches (own copy, numpy)
     profiler/   step and callable timing on the card
     convert.py  flax parameter trees -> this package's state_dict

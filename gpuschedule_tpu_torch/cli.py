@@ -1,13 +1,17 @@
 """Command line: ``python -m gpuschedule_tpu_torch {train,profile} ...``.
 
-Counterparts of the JAX package's subcommands on one device:
+Counterparts of the JAX package's subcommands:
 
-- ``train`` builds the trainer, feeds it :func:`synthetic_lm_batches` and
-  prints one JSON summary line with the JAX CLI's keys (``model``,
-  ``steps``, ``mesh``, ``first_loss``, ``last_loss``, ``tokens_per_s``
-  rounded to 0.1, ``checkpoint``, ``resumed_at_step``), plus ``device``.
-  ``--data``, ``--ckpt`` and ``--restore`` are not ported yet (ROADMAP.md),
-  so the last two are null.
+- ``train`` builds a dp x sp mesh and the trainer over it, feeds it
+  :func:`synthetic_lm_batches` and prints one JSON summary line with the
+  JAX CLI's keys (``model``, ``steps``, ``mesh``, ``first_loss``,
+  ``last_loss``, ``tokens_per_s`` rounded to 0.1, ``checkpoint``,
+  ``resumed_at_step``), plus ``device``.  ``--sp``, ``--devices`` and
+  ``--ring-attn`` mean what they mean there; the ranks come from the
+  launcher (``torchrun --nproc-per-node N -m gpuschedule_tpu_torch train``),
+  one a device, and rank 0 prints the line.  Without a launcher it runs on
+  one device.  ``--tp`` above 1, ``--data``, ``--ckpt`` and ``--restore``
+  are not ported yet (ROADMAP.md), so the last two keys are null.
 - ``profile`` measures each ``--model``'s step, fits its goodput curve into
   the ``--curves`` JSON that the simulator's Optimus policy reads
   (``gpuschedule_tpu run --policy optimus --curves``), and prints
@@ -19,31 +23,66 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 from typing import Optional, Sequence
 
 import torch
+import torch.distributed as dist
+
+
+def join_launcher_group(device) -> bool:
+    """Join the process group a launcher describes (``torchrun`` sets
+    ``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK`` and the rendezvous address):
+    NCCL for cards, each rank on card ``LOCAL_RANK``, gloo for the CPU.
+    Returns False when no launcher started this process."""
+    from gpuschedule_tpu_torch import resolve_device
+
+    if "WORLD_SIZE" not in os.environ or dist.is_initialized():
+        return False
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
+    return True
 
 
 def cmd_train(args) -> int:
-    from gpuschedule_tpu_torch.data import synthetic_lm_batches
-    from gpuschedule_tpu_torch.parallel import ShardedTrainer
-    from gpuschedule_tpu_torch.parallel.train import MESH_AXES
-
     if args.steps < 1:
         raise SystemExit("--steps must be >= 1")
+    if args.tp > 1:
+        raise SystemExit(f"--tp {args.tp}: tensor parallelism is not ported yet (ROADMAP.md, "
+                         "Queue 1 item 2)")
     try:
+        joined = join_launcher_group(args.device)
+    except RuntimeError as e:
+        raise SystemExit(str(e))
+    try:
+        return _train(args)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _train(args) -> int:
+    from gpuschedule_tpu_torch.data import synthetic_lm_batches
+    from gpuschedule_tpu_torch.parallel import ShardedTrainer, make_mesh
+
+    try:
+        mesh = make_mesh(sp=args.sp, tp=args.tp, devices=args.devices, device=args.device)
         trainer = ShardedTrainer(
             args.model,
+            mesh,
             batch_size=args.batch_size,
             seq_len=args.seq_len,
             learning_rate=args.lr,
+            seq_shard=args.ring_attn,
+            ring_attn=args.ring_attn,
             flash_attn=args.flash_attn,
             warmup_steps=args.warmup_steps,
             decay_steps=args.decay_steps,
             grad_clip=args.grad_clip,
-            device=args.device,
         )
     except (ValueError, NotImplementedError, RuntimeError) as e:
         raise SystemExit(str(e))
@@ -71,10 +110,12 @@ def cmd_train(args) -> int:
         if n > 1 and elapsed > 0 else None
     )
     dev = trainer.device
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return 0  # the loss is the global mean on every rank: rank 0 reports it
     print(json.dumps({
         "model": args.model,
         "steps": n,
-        "mesh": dict.fromkeys(MESH_AXES, 1),  # one device
+        "mesh": dict(mesh.shape),
         "first_loss": first_loss,
         "last_loss": last_loss,
         "tokens_per_s": tokens_per_s,
@@ -115,7 +156,7 @@ def cmd_profile(args) -> int:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="gpuschedule_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
-    tr = sub.add_parser("train", help="train a model on one device")
+    tr = sub.add_parser("train", help="train a model on a device mesh")
     tr.add_argument("--model", required=True)
     tr.add_argument("--steps", type=int, default=10)
     tr.add_argument("--batch-size", type=int, default=8)
@@ -127,9 +168,17 @@ def build_parser() -> argparse.ArgumentParser:
                     help="cosine-decay LR to zero over this many post-warmup steps")
     tr.add_argument("--grad-clip", type=float, default=None,
                     help="global-norm gradient clipping threshold")
+    tr.add_argument("--sp", type=int, default=1)
+    tr.add_argument("--tp", type=int, default=1, help="not ported: must be 1")
+    tr.add_argument("--devices", type=int,
+                    help="the mesh's devices, one a rank: must be the launcher's world "
+                         "size (default: the world)")
     tr.add_argument("--seed", type=int, default=0)
     tr.add_argument("--flash-attn", action="store_true",
                     help="the CUDA flash-attention kernels as the attention core")
+    tr.add_argument("--ring-attn", action="store_true",
+                    help="sequence-shard over sp with ring attention (with --flash-attn, "
+                         "the ring-flash composition)")
     tr.add_argument("--device", default=None,
                     help="'cpu' for the plain PyTorch versions; default: the card")
     tr.set_defaults(fn=cmd_train)

@@ -174,9 +174,16 @@ class TransformerLM(nn.Module):
             if isinstance(mod, Dense):
                 mod.reset_parameters(gen)
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, pos_offset: int = 0) -> torch.Tensor:
+        """Logits of ``tokens``, which sit at positions ``pos_offset`` on in
+        the sequence: a rank holding chunk r of a sequence split over sp
+        passes r * L, where the JAX model sees the whole sequence."""
+        n = tokens.shape[1]
+        if pos_offset < 0 or pos_offset + n > self.cfg.max_seq:
+            raise ValueError(f"positions [{pos_offset}, {pos_offset + n}) outside max_seq "
+                             f"{self.cfg.max_seq}")
         x = self.embed(tokens)
-        x = x + self.pos_embed[: tokens.shape[1]].to(BF16)
+        x = x + self.pos_embed[pos_offset:pos_offset + n].to(BF16)
         for block in self.blocks:
             if self.cfg.remat and torch.is_grad_enabled():
                 # no dropout or other draw in either model family (nor in

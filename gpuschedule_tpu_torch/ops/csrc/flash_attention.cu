@@ -13,6 +13,14 @@
 // tensor-core kernels, f32 the FMA kernels, for all three functions.
 // Neither is a fallback for the other.
 //
+// Output forms.  The tensor-core kernels are templated on their output type:
+// bf16, outputs like the inputs (the op's form), or f32 from bf16 inputs, the
+// form the ring's chunk ops launch (flash_chunk_fwd / flash_chunk_bwd, JAX's
+// out_dtype=jnp.float32 at :519-561): each (q-chunk, k-chunk) pair's out, dq,
+// dk and dv are merged and summed across the ring in f32, so they must not be
+// rounded to bf16 first.  The accumulators are f32 in registers either way;
+// only the epilogue's store differs (store2).  The FMA kernels store f32.
+//
 // Layout.  q, k, v, dO, O, dq, dk, dv are read and written in the caller's
 // (B, S, H, D) layout (row (b, s, h) starts at ((b*S + s)*H + h)*D), so no
 // transpose or padding copy is made.  lse and delta are plain (B*H, S) f32
@@ -545,16 +553,27 @@ __device__ __forceinline__ void b_frags(uint32_t (&b)[4], const bf16* tile, int 
                                  (lane >> 4) * 8));
 }
 
+// Columns c and c + 1 of one output row from the f32 accumulators, in the
+// output's type: a packed bf16 pair (the op's form, out like its inputs) or
+// two f32 (the ring's chunk form: each chunk pair's out, dq, dk and dv are
+// merged and summed across the ring in f32, so they are not rounded first).
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = pack(a, b);
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
 // ------------------------------------------------------- forward, bf16 (K1) --
 // grid (nq, B*H), 128 threads; warp w owns q rows q0 + 16w .. q0 + 16w + 15,
 // lane (g, t) rows g and g + 8 of them.  Shared memory: q (64 x D), then two
 // stages of K and V (64 x D each).  At D = 32, left to itself, ptxas holds
 // the kernel to 96 registers and spills; asking for 4 blocks an SM lets it
 // use up to 128.
-template <int D>
+template <int D, typename OutT>
 __global__ void __launch_bounds__(NTC, D == 32 ? 4 : 1)
 fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-               const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+               const bf16* __restrict__ v, OutT* __restrict__ o, float* __restrict__ lse,
                int S, int H, float scale, int causal) {
   constexpr int KS = D / 16, ND = D / 8, NB = BK / 8, TE = TILE_ELEMS<D>;
   extern __shared__ float4 smem4[];
@@ -686,8 +705,8 @@ fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const float lf = fmaxf(l[r], 1e-30f);
 #pragma unroll
       for (int nd = 0; nd < ND; ++nd)
-        *reinterpret_cast<uint32_t*>(o + base + (size_t)row * HD + nd * 8 + 2 * t) =
-            pack(acc[nd][2 * r] / lf, acc[nd][2 * r + 1] / lf);
+        store2(o + base + (size_t)row * HD + nd * 8 + 2 * t, acc[nd][2 * r] / lf,
+               acc[nd][2 * r + 1] / lf);
       if (t == 0) lse[(size_t)bh * S + row] = (m[r] + log2f(lf)) * LN2;
     }
   }
@@ -699,12 +718,12 @@ fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // the block's keys as rows, so p^T and ds^T are A operands in registers.
 // Shared memory: K, V (64 x D each), two stages of q and dO (64 x D each),
 // then two stages of the q tile's lse and delta rows (64 f32 each).
-template <int D>
+template <int D, typename OutT>
 __global__ void __launch_bounds__(NTC)
 dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, const bf16* __restrict__ g,
                 const float* __restrict__ lse, const float* __restrict__ delta,
-                bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int H, float scale,
+                OutT* __restrict__ dk, OutT* __restrict__ dv, int S, int H, float scale,
                 int causal) {
   constexpr int KS = D / 16, ND = D / 8, TE = TILE_ELEMS<D>;
   constexpr bool KV_REGS = D <= 64;    // K and V fragments held in registers
@@ -868,8 +887,8 @@ dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int nd = 0; nd < ND; ++nd) {
         const size_t off = base + (size_t)row * HD + nd * 8 + 2 * t;
-        *reinterpret_cast<uint32_t*>(dk + off) = pack(dka[nd][2 * r], dka[nd][2 * r + 1]);
-        *reinterpret_cast<uint32_t*>(dv + off) = pack(dva[nd][2 * r], dva[nd][2 * r + 1]);
+        store2(dk + off, dka[nd][2 * r], dka[nd][2 * r + 1]);
+        store2(dv + off, dva[nd][2 * r], dva[nd][2 * r + 1]);
       }
     }
   }
@@ -884,12 +903,12 @@ dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // At D > 64 the q and dO fragments are re-read from shared memory and each
 // K tile is walked in halves of 32 keys, to keep the dq accumulator in
 // registers.
-template <int D>
+template <int D, typename OutT>
 __global__ void __launch_bounds__(NTC)
 dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
               const bf16* __restrict__ v, const bf16* __restrict__ g,
               const float* __restrict__ lse, const float* __restrict__ delta,
-              bf16* __restrict__ dq, int S, int H, float scale, int causal) {
+              OutT* __restrict__ dq, int S, int H, float scale, int causal) {
   constexpr int KS = D / 16, ND = D / 8, TE = TILE_ELEMS<D>;
   constexpr bool QG_REGS = D <= 64;      // q and dO fragments held in registers
   constexpr int KW = D <= 64 ? 64 : 32;  // keys a warp takes at a time
@@ -1036,8 +1055,8 @@ dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (row < S) {
 #pragma unroll
       for (int nd = 0; nd < ND; ++nd)
-        *reinterpret_cast<uint32_t*>(dq + base + (size_t)row * HD + nd * 8 + 2 * t) =
-            pack(dqa[nd][2 * r], dqa[nd][2 * r + 1]);
+        store2(dq + base + (size_t)row * HD + nd * 8 + 2 * t, dqa[nd][2 * r],
+               dqa[nd][2 * r + 1]);
     }
   }
 }
@@ -1092,58 +1111,60 @@ int dkdv_launch(const void* q, const void* k, const void* v, const void* g,
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, typename OutT>
 int fwd_mma_launch(const void* q, const void* k, const void* v, void* o, float* lse,
                    int B, int S, int H, float scale, int causal, cudaStream_t stream) {
   const size_t smem = (size_t)5 * TILE_ELEMS<D> * sizeof(bf16);  // q, 2 x (K, V)
-  auto kernel = fwd_mma_kernel<D>;
+  auto kernel = fwd_mma_kernel<D, OutT>;
   cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((S + BQ - 1) / BQ, B * H);
   kernel<<<grid, NTC, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), lse, S, H, scale, causal);
+      static_cast<OutT*>(o), lse, S, H, scale, causal);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, typename OutT>
 int dq_mma_launch(const void* q, const void* k, const void* v, const void* g,
                   const float* lse, const float* delta, void* dq,
                   int B, int S, int H, float scale, int causal, cudaStream_t stream) {
   const size_t smem = (size_t)6 * TILE_ELEMS<D> * sizeof(bf16);  // q, dO, 2 x (K, V)
-  auto kernel = dq_mma_kernel<D>;
+  auto kernel = dq_mma_kernel<D, OutT>;
   cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((S + BQ - 1) / BQ, B * H);
   kernel<<<grid, NTC, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(g), lse, delta, static_cast<bf16*>(dq), S, H, scale, causal);
+      static_cast<const bf16*>(g), lse, delta, static_cast<OutT*>(dq), S, H, scale, causal);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, typename OutT>
 int dkdv_mma_launch(const void* q, const void* k, const void* v, const void* g,
                     const float* lse, const float* delta, void* dk, void* dv,
                     int B, int S, int H, float scale, int causal, cudaStream_t stream) {
   // K, V, 2 x (q, dO), then 2 x (lse, delta) rows
   const size_t smem = (size_t)6 * TILE_ELEMS<D> * sizeof(bf16) + 4 * BQ * sizeof(float);
-  auto kernel = dkdv_mma_kernel<D>;
+  auto kernel = dkdv_mma_kernel<D, OutT>;
   cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((S + BK - 1) / BK, B * H);
   kernel<<<grid, NTC, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(g), lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+      static_cast<const bf16*>(g), lse, delta, static_cast<OutT*>(dk), static_cast<OutT*>(dv),
       S, H, scale, causal);
   return (int)cudaGetLastError();
 }
 
 // Head dims instantiated: 32 (transformer-tiny/-small/-long), 64 (-xlong),
-// 96 (-large), 128.  Anything else returns kUnsupported.
+// 96 (-large), 128.  Anything else returns kUnsupported; an output form other
+// than 0 (like the inputs) or 1 (f32) returns kUnsupportedOut.
 constexpr int kUnsupported = -1;
+constexpr int kUnsupportedOut = -2;
 
 #define GST_DISPATCH_D(D_, CALL)           \
   switch (D_) {                            \
@@ -1159,8 +1180,12 @@ int fwd_d(const void* q, const void* k, const void* v, void* o, float* lse,
   GST_DISPATCH_D(D, (fwd_launch<Dc>(q, k, v, o, lse, B, S, H, scale, causal, st)))
 }
 int fwd_mma_d(const void* q, const void* k, const void* v, void* o, float* lse,
-              int B, int S, int H, int D, float scale, int causal, cudaStream_t st) {
-  GST_DISPATCH_D(D, (fwd_mma_launch<Dc>(q, k, v, o, lse, B, S, H, scale, causal, st)))
+              int B, int S, int H, int D, float scale, int causal, int out_f32,
+              cudaStream_t st) {
+  GST_DISPATCH_D(D, (out_f32 ? fwd_mma_launch<Dc, float>(q, k, v, o, lse, B, S, H, scale,
+                                                         causal, st)
+                             : fwd_mma_launch<Dc, bf16>(q, k, v, o, lse, B, S, H, scale,
+                                                        causal, st)))
 }
 
 int dq_d(const void* q, const void* k, const void* v, const void* g, const float* lse,
@@ -1170,9 +1195,11 @@ int dq_d(const void* q, const void* k, const void* v, const void* g, const float
 }
 int dq_mma_d(const void* q, const void* k, const void* v, const void* g, const float* lse,
              const float* delta, void* dq, int B, int S, int H, int D, float scale, int causal,
-             cudaStream_t st) {
-  GST_DISPATCH_D(D, (dq_mma_launch<Dc>(q, k, v, g, lse, delta, dq, B, S, H, scale, causal,
-                                       st)))
+             int out_f32, cudaStream_t st) {
+  GST_DISPATCH_D(D, (out_f32 ? dq_mma_launch<Dc, float>(q, k, v, g, lse, delta, dq, B, S, H,
+                                                        scale, causal, st)
+                             : dq_mma_launch<Dc, bf16>(q, k, v, g, lse, delta, dq, B, S, H,
+                                                       scale, causal, st)))
 }
 
 int dkdv_d(const void* q, const void* k, const void* v, const void* g, const float* lse,
@@ -1183,49 +1210,58 @@ int dkdv_d(const void* q, const void* k, const void* v, const void* g, const flo
 }
 int dkdv_mma_d(const void* q, const void* k, const void* v, const void* g, const float* lse,
                const float* delta, void* dk, void* dv, int B, int S, int H, int D,
-               float scale, int causal, cudaStream_t st) {
-  GST_DISPATCH_D(D, (dkdv_mma_launch<Dc>(q, k, v, g, lse, delta, dk, dv, B, S, H, scale,
-                                         causal, st)))
+               float scale, int causal, int out_f32, cudaStream_t st) {
+  GST_DISPATCH_D(D, (out_f32 ? dkdv_mma_launch<Dc, float>(q, k, v, g, lse, delta, dk, dv, B, S,
+                                                          H, scale, causal, st)
+                             : dkdv_mma_launch<Dc, bf16>(q, k, v, g, lse, delta, dk, dv, B, S,
+                                                         H, scale, causal, st)))
 }
 
 }  // namespace
 
 // ------------------------------------------------------- plain C interface --
-// Each returns 0 on success, a cudaError_t code from the launch, or -1 for an
-// unsupported head dim.  is_bf16: 1 for bfloat16 tensors, 0 for float32; the
-// dtype picks the kernel (bf16: tensor cores, f32: FMA).
+// Each returns 0 on success, a cudaError_t code from the launch, -1 for an
+// unsupported head dim or -2 for an unsupported output form.  is_bf16: 1 for
+// bfloat16 inputs, 0 for float32; the inputs' dtype picks the kernel (bf16:
+// tensor cores, f32: FMA).  out_f32: 0 for outputs in the inputs' dtype, 1
+// for f32 outputs (the ring's chunk form; from bf16 inputs the tensor-core
+// kernels' f32 epilogue, from f32 inputs the FMA kernels as they are).
 
 extern "C" {
 
 int gst_flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
                   int B, int S, int H, int D, float scale, int causal, int is_bf16,
-                  void* stream) {
+                  int out_f32, void* stream) {
+  if (out_f32 != 0 && out_f32 != 1) return kUnsupportedOut;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? fwd_mma_d(q, k, v, o, lse, B, S, H, D, scale, causal, st)
+  return is_bf16 ? fwd_mma_d(q, k, v, o, lse, B, S, H, D, scale, causal, out_f32, st)
                  : fwd_d(q, k, v, o, lse, B, S, H, D, scale, causal, st);
 }
 
 int gst_flash_bwd_dq(const void* q, const void* k, const void* v, const void* g,
                      const float* lse, const float* delta, void* dq,
                      int B, int S, int H, int D, float scale, int causal, int is_bf16,
-                     void* stream) {
+                     int out_f32, void* stream) {
+  if (out_f32 != 0 && out_f32 != 1) return kUnsupportedOut;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? dq_mma_d(q, k, v, g, lse, delta, dq, B, S, H, D, scale, causal, st)
+  return is_bf16 ? dq_mma_d(q, k, v, g, lse, delta, dq, B, S, H, D, scale, causal, out_f32, st)
                  : dq_d(q, k, v, g, lse, delta, dq, B, S, H, D, scale, causal, st);
 }
 
 int gst_flash_bwd_dkdv(const void* q, const void* k, const void* v, const void* g,
                        const float* lse, const float* delta, void* dk, void* dv,
                        int B, int S, int H, int D, float scale, int causal, int is_bf16,
-                       void* stream) {
+                       int out_f32, void* stream) {
+  if (out_f32 != 0 && out_f32 != 1) return kUnsupportedOut;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? dkdv_mma_d(q, k, v, g, lse, delta, dk, dv, B, S, H, D, scale, causal, st)
-                 : dkdv_d(q, k, v, g, lse, delta, dk, dv, B, S, H, D, scale, causal,
-                                 st);
+  return is_bf16 ? dkdv_mma_d(q, k, v, g, lse, delta, dk, dv, B, S, H, D, scale, causal,
+                              out_f32, st)
+                 : dkdv_d(q, k, v, g, lse, delta, dk, dv, B, S, H, D, scale, causal, st);
 }
 
 const char* gst_error_string(int code) {
   if (code == kUnsupported) return "unsupported head dim (instantiated: 32, 64, 96, 128)";
+  if (code == kUnsupportedOut) return "unsupported output form (0: the inputs' dtype, 1: f32)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -16,6 +16,14 @@ bf16 inputs (the model's dtype) run all three on the tensor cores
 (``mma.sync`` fed by ``cp.async``); f32 inputs run FMA kernels, which keep
 full f32 products.  The dtype picks the kernel; neither is a fallback.
 
+Each wrapper takes ``out_dtype``: None (or the inputs' dtype) for outputs
+like the inputs, or ``torch.float32``.  From bf16 inputs the f32 form is the
+tensor-core kernel with an f32 epilogue, the form the JAX package's chunk
+ops launch (``out_dtype=jnp.float32``) and the ring's chunk ops here launch
+(:func:`flash_chunk_fwd`, :func:`flash_chunk_bwd`); it is counted under a
+name of its own (``flash_fwd_f32``, ...).  From f32 inputs it is the FMA
+kernel as it is.
+
 The kernels live in ``csrc/flash_attention.cu`` (its header comment gives
 each kernel's bound and design), are built by ``nvcc`` at first use
 (:mod:`._build`) and are called through ctypes on PyTorch's current stream.
@@ -53,7 +61,10 @@ HEAD_DIMS = (32, 64, 96, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 
 # Launches of each CUDA kernel, counted by its wrapper where it launches.
-LAUNCHES: Dict[str, int] = launches.counter("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")
+LAUNCHES: Dict[str, int] = launches.counter(
+    "flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv",
+    "flash_fwd_f32", "flash_bwd_dq_f32", "flash_bwd_dkdv_f32",
+)
 
 
 def reset_launches() -> None:
@@ -72,7 +83,7 @@ def _kernels() -> ctypes.CDLL:
 
         lib = _build.load("flash_attention")
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        dims = [i, i, i, i, f, i, i, p]  # B, S, H, D, scale, causal, is_bf16, stream
+        dims = [i, i, i, i, f, i, i, i, p]  # B, S, H, D, scale, causal, is_bf16, out_f32, stream
         lib.gst_flash_fwd.argtypes = [p] * 5 + dims
         lib.gst_flash_bwd_dq.argtypes = [p] * 7 + dims
         lib.gst_flash_bwd_dkdv.argtypes = [p] * 8 + dims
@@ -135,6 +146,24 @@ def _check_rows(rows: torch.Tensor, bh: int, s: int, name: str) -> None:
         raise ValueError(f"{name} must be f32 of shape {(bh, s)}, got {rows.dtype} {tuple(rows.shape)}")
 
 
+def _out_dtype(x: torch.Tensor, out_dtype) -> torch.dtype:
+    """The outputs' dtype: ``x``'s for None, else ``x``'s or f32."""
+    if out_dtype is None or out_dtype == x.dtype:
+        return x.dtype
+    if out_dtype != torch.float32:
+        raise TypeError(f"out_dtype must be None, the inputs' {x.dtype} or torch.float32; "
+                        f"got {out_dtype}")
+    return out_dtype
+
+
+def _form(name: str, x: torch.Tensor, dtype: torch.dtype):
+    """(launch counter name, out_f32 flag) of a launch from inputs like ``x``
+    into outputs of ``dtype``: bf16 inputs with f32 outputs are the f32 form."""
+    if x.dtype == torch.bfloat16 and dtype == torch.float32:
+        return f"{name}_f32", 1
+    return name, 0
+
+
 def _launch(fn, *args) -> None:
     from gpuschedule_tpu_torch.ops import _build
 
@@ -185,7 +214,7 @@ def _mask(rows: torch.Tensor, cols: torch.Tensor, s: int, causal: bool) -> torch
 
 # ------------------------------------------------------------- forward (K1) --
 
-def flash_fwd_plain(q, k, v, causal: bool = True, block_k: int = TILE):
+def flash_fwd_plain(q, k, v, causal: bool = True, block_k: int = TILE, out_dtype=None):
     b, s, h, d = q.shape
     scale = _sm_scale(d)
     qf, kf, vf = _heads(q), _heads(k), _heads(v)
@@ -205,36 +234,40 @@ def flash_fwd_plain(q, k, v, causal: bool = True, block_k: int = TILE):
         acc = acc * corr[..., None] + torch.matmul(_as(p, v.dtype), vf[:, k0:k0 + block_k])
         m = m_new
     l_fin = torch.clamp(l, min=1e-30)
-    out = _unheads(acc / l_fin[..., None], b, h, q.dtype)
+    out = _unheads(acc / l_fin[..., None], b, h, _out_dtype(q, out_dtype))
     return out, m + torch.log(l_fin)
 
 
-def flash_fwd(q, k, v, *, causal: bool = True, block_k: Optional[int] = None):
-    """(out, lse): out in q's (B, S, H, D) layout and dtype, lse the f32
-    per-row logsumexp as (B*H, S) — the only residual the backward needs."""
+def flash_fwd(q, k, v, *, causal: bool = True, block_k: Optional[int] = None, out_dtype=None):
+    """(out, lse): out in q's (B, S, H, D) layout, in q's dtype or
+    ``out_dtype``, lse the f32 per-row logsumexp as (B*H, S) — the only
+    residual the backward needs."""
     _check_qkv(q, k, v)
     b, s, h, d = q.shape
+    dtype = _out_dtype(q, out_dtype)
     if q.device.type != "cuda":
-        return flash_fwd_plain(q, k, v, causal, _block(s, block_k))
+        return flash_fwd_plain(q, k, v, causal, _block(s, block_k), dtype)
     _check_cuda_block(block_k)
     _check_cuda((q, k, v))
-    out = torch.empty_like(q)
+    out = torch.empty_like(q, dtype=dtype)
     lse = torch.empty((b * h, s), dtype=torch.float32, device=q.device)
+    name, out_f32 = _form("flash_fwd", q, dtype)
     if out.numel():
         with torch.cuda.device(q.device):
             lib = _kernels()
             _launch(
                 lib.gst_flash_fwd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 out.data_ptr(), lse.data_ptr(), b, s, h, d, _sm_scale(d),
-                int(causal), int(q.dtype == torch.bfloat16), _stream(),
+                int(causal), int(q.dtype == torch.bfloat16), out_f32, _stream(),
             )
-            LAUNCHES["flash_fwd"] += 1
+            LAUNCHES[name] += 1
     return out, lse
 
 
 # ------------------------------------------------------------------ dq (K2) --
 
-def flash_bwd_dq_plain(q, k, v, g, lse, delta, causal: bool = True, block_k: int = TILE):
+def flash_bwd_dq_plain(q, k, v, g, lse, delta, causal: bool = True, block_k: int = TILE,
+                       out_dtype=None):
     b, s, h, d = q.shape
     scale = _sm_scale(d)
     qf, kf, vf, gf = _heads(q), _heads(k), _heads(v), _heads(g)
@@ -249,24 +282,27 @@ def flash_bwd_dq_plain(q, k, v, g, lse, delta, causal: bool = True, block_k: int
         dp = torch.matmul(gf, vf[:, k0:k0 + block_k].transpose(1, 2))
         ds = p * (dp - delta[..., None]) * scale
         dq = dq + torch.matmul(_as(ds, k.dtype), kb)
-    return _unheads(dq, b, h, q.dtype)
+    return _unheads(dq, b, h, _out_dtype(q, out_dtype))
 
 
 def flash_bwd_dq(q, k, v, g, lse, delta, *, causal: bool = True,
-                 block_k: Optional[int] = None):
-    """dq = Σ_k ds·K with p = exp(s − lse), ds = p·(dO·Vᵀ − delta)·scale.
-    ``lse`` and ``delta`` are f32 (B*H, S) rows."""
+                 block_k: Optional[int] = None, out_dtype=None):
+    """dq = Σ_k ds·K with p = exp(s − lse), ds = p·(dO·Vᵀ − delta)·scale,
+    in q's dtype or ``out_dtype``.  ``lse`` and ``delta`` are f32 (B*H, S)
+    rows."""
     _check_qkv(q, k, v)
     b, s, h, d = q.shape
     if g.shape != q.shape:
         raise ValueError(f"dO shape {tuple(g.shape)} != q shape {tuple(q.shape)}")
     _check_rows(lse, b * h, s, "lse")
     _check_rows(delta, b * h, s, "delta")
+    dtype = _out_dtype(q, out_dtype)
     if q.device.type != "cuda":
-        return flash_bwd_dq_plain(q, k, v, g, lse, delta, causal, _block(s, block_k))
+        return flash_bwd_dq_plain(q, k, v, g, lse, delta, causal, _block(s, block_k), dtype)
     _check_cuda_block(block_k)
     _check_cuda((q, k, v, g), (lse, delta))
-    dq = torch.empty_like(q)
+    dq = torch.empty_like(q, dtype=dtype)
+    name, out_f32 = _form("flash_bwd_dq", q, dtype)
     if dq.numel():
         with torch.cuda.device(q.device):
             lib = _kernels()
@@ -274,15 +310,16 @@ def flash_bwd_dq(q, k, v, g, lse, delta, *, causal: bool = True,
                 lib.gst_flash_bwd_dq, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 g.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
                 b, s, h, d, _sm_scale(d), int(causal),
-                int(q.dtype == torch.bfloat16), _stream(),
+                int(q.dtype == torch.bfloat16), out_f32, _stream(),
             )
-            LAUNCHES["flash_bwd_dq"] += 1
+            LAUNCHES[name] += 1
     return dq
 
 
 # --------------------------------------------------------------- dk/dv (K3) --
 
-def flash_bwd_dkdv_plain(q, k, v, g, lse, delta, causal: bool = True, block_q: int = TILE):
+def flash_bwd_dkdv_plain(q, k, v, g, lse, delta, causal: bool = True, block_q: int = TILE,
+                         out_dtype=None):
     b, s, h, d = q.shape
     scale = _sm_scale(d)
     qf, kf, vf, gf = _heads(q), _heads(k), _heads(v), _heads(g)
@@ -299,25 +336,28 @@ def flash_bwd_dkdv_plain(q, k, v, g, lse, delta, causal: bool = True, block_q: i
         dp = torch.matmul(gb, vf.transpose(1, 2))
         ds = p * (dp - delta[:, q0:q0 + block_q, None]) * scale
         dk = dk + torch.matmul(_as(ds, q.dtype).transpose(1, 2), qb)
-    return _unheads(dk, b, h, k.dtype), _unheads(dv, b, h, v.dtype)
+    return (_unheads(dk, b, h, _out_dtype(k, out_dtype)),
+            _unheads(dv, b, h, _out_dtype(v, out_dtype)))
 
 
 def flash_bwd_dkdv(q, k, v, g, lse, delta, *, causal: bool = True,
-                   block_q: Optional[int] = None):
+                   block_q: Optional[int] = None, out_dtype=None):
     """(dk, dv): dv = Σ_q pᵀ·dO and dk = Σ_q dsᵀ·q over the q rows that
-    attend to each key."""
+    attend to each key, in k's dtype or ``out_dtype``."""
     _check_qkv(q, k, v)
     b, s, h, d = q.shape
     if g.shape != q.shape:
         raise ValueError(f"dO shape {tuple(g.shape)} != q shape {tuple(q.shape)}")
     _check_rows(lse, b * h, s, "lse")
     _check_rows(delta, b * h, s, "delta")
+    dtype = _out_dtype(k, out_dtype)
     if q.device.type != "cuda":
-        return flash_bwd_dkdv_plain(q, k, v, g, lse, delta, causal, _block(s, block_q))
+        return flash_bwd_dkdv_plain(q, k, v, g, lse, delta, causal, _block(s, block_q), dtype)
     _check_cuda_block(block_q)
     _check_cuda((q, k, v, g), (lse, delta))
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
+    dk = torch.empty_like(k, dtype=dtype)
+    dv = torch.empty_like(v, dtype=dtype)
+    name, out_f32 = _form("flash_bwd_dkdv", q, dtype)
     if dk.numel():
         with torch.cuda.device(q.device):
             lib = _kernels()
@@ -325,9 +365,9 @@ def flash_bwd_dkdv(q, k, v, g, lse, delta, *, causal: bool = True,
                 lib.gst_flash_bwd_dkdv, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 g.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
                 dv.data_ptr(), b, s, h, d, _sm_scale(d), int(causal),
-                int(q.dtype == torch.bfloat16), _stream(),
+                int(q.dtype == torch.bfloat16), out_f32, _stream(),
             )
-            LAUNCHES["flash_bwd_dkdv"] += 1
+            LAUNCHES[name] += 1
     return dk, dv
 
 
@@ -338,6 +378,37 @@ def attention_delta(out: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     JAX package, a PyTorch expression here)."""
     b, s, h, _ = out.shape
     return torch.einsum("bshd,bshd->bhs", g.float(), out.float()).reshape(b * h, s).contiguous()
+
+
+def flash_chunk_fwd(q, k, v, *, causal: bool, block_q: Optional[int] = None,
+                    block_k: Optional[int] = None):
+    """(out, lse_rows) of one (q-chunk, k-chunk) pair, the per-chunk op of
+    the ring (:mod:`gpuschedule_tpu_torch.parallel.ringflash`), as the JAX
+    package's ``flash_chunk_fwd``: out f32 in (B, S, H, D), so the ring's
+    merge takes it unrounded, and lse as f32 (B, H, S) rows for the
+    associative (out, lse) merge.  Not differentiable on its own: the ring
+    has its own backward, a second ring pass over :func:`flash_chunk_bwd`.
+    ``block_q`` is the JAX signature's; the forward tiles keys only."""
+    b, s, h, _ = q.shape
+    out, lse = flash_fwd(q, k, v, causal=causal, block_k=block_k, out_dtype=torch.float32)
+    return out, lse.view(b, h, s)
+
+
+def flash_chunk_bwd(q, k, v, out, lse_rows, g, *, causal: bool,
+                    block_q: Optional[int] = None, block_k: Optional[int] = None):
+    """f32 (dq, dk, dv) of one (q-chunk, k-chunk) pair given the **global**
+    logsumexp rows (B, H, S): p = exp(s − lse) is then the pair's share of
+    the whole softmax, so the pairs' contributions sum to the gradient.
+    ``out`` and ``g`` are the merged output and its cotangent; delta is
+    recomputed from them on each call (:func:`attention_delta`)."""
+    b, s, h, _ = q.shape
+    lse = lse_rows.reshape(b * h, s).contiguous()
+    delta = attention_delta(out, g)
+    dq = flash_bwd_dq(q, k, v, g, lse, delta, causal=causal, block_k=block_k,
+                      out_dtype=torch.float32)
+    dk, dv = flash_bwd_dkdv(q, k, v, g, lse, delta, causal=causal, block_q=block_q,
+                            out_dtype=torch.float32)
+    return dq, dk, dv
 
 
 class _FlashAttention(torch.autograd.Function):

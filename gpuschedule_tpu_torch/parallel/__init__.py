@@ -1,5 +1,21 @@
-"""The single-device train step (multi-GPU meshes are not ported yet)."""
+"""Parallelism: the mesh, the sp rings and the train step.
 
+Where the JAX package shards one program with ``jax.sharding``, the port
+runs one rank of a :class:`Mesh` a process (``torchrun``), its collectives
+on the mesh's process groups: NCCL on cards, gloo on the CPU.
+"""
+
+from gpuschedule_tpu_torch.parallel.mesh import Mesh, make_mesh
+from gpuschedule_tpu_torch.parallel.ringattn import ring_attention
+from gpuschedule_tpu_torch.parallel.ringflash import ring_flash_attention
 from gpuschedule_tpu_torch.parallel.train import ShardedTrainer, TrainState, make_optimizer
 
-__all__ = ["ShardedTrainer", "TrainState", "make_optimizer"]
+__all__ = [
+    "Mesh",
+    "make_mesh",
+    "ring_attention",
+    "ring_flash_attention",
+    "ShardedTrainer",
+    "TrainState",
+    "make_optimizer",
+]

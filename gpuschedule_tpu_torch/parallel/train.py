@@ -1,12 +1,22 @@
-"""The train step: the framework's unit of measured work, on one device.
+"""The train step: the framework's unit of measured work, over a dp x sp mesh.
 
 Counterpart of ``gpuschedule_tpu/parallel/train.py`` (``make_optimizer`` and
-``ShardedTrainer``) at dp = sp = tp = 1.  The JAX trainer shards one jitted
-step over a mesh; this one runs on one device, and any other mesh raises
-``NotImplementedError`` (multi-GPU dp/tp/sp is queued in ROADMAP.md).  On
-the card the step is one captured program, as the JAX step is one ``jit``
-program: forward, backward, clip and adamw replay as one CUDA graph
-(:meth:`ShardedTrainer.step`).  On the CPU it runs eagerly.
+``ShardedTrainer``).  The JAX trainer shards one jitted step over a mesh
+with named shardings; this one runs one rank of a :class:`Mesh` a process.
+
+- **dp**: each rank takes its rows of the global batch.
+- **sp**: with ``seq_shard`` (which ``ring_attn`` needs) each rank takes its
+  chunk of the sequence, and the ring (``ring_attention``, or
+  ``ring_flash_attention`` with ``flash_attn``) attends across the chunks.
+- The loss is the rank's sum over the global count B·(S − 1) and the
+  gradients are summed over the world (``all_reduce``): together the JAX
+  step's mean and psum.
+- **tp** and **pp** are not ported (``NotImplementedError``, ROADMAP.md).
+
+On one rank and on the card the step is one captured program, as the JAX
+step is one ``jit`` program: forward, backward, clip and adamw replay as
+one CUDA graph (:meth:`ShardedTrainer.step`).  On the CPU, and on more
+than one rank, it runs eagerly.
 
 Optimizer parity with optax (read from the installed optax 0.2.6):
 ``optax.adamw`` decays every parameter with ``weight_decay=1e-4`` (torch's
@@ -23,17 +33,15 @@ from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
-from gpuschedule_tpu_torch import resolve_device
 from gpuschedule_tpu_torch.data.loader import synthetic_lm_batches
 from gpuschedule_tpu_torch.models.transformer import build_model, lm_config
 from gpuschedule_tpu_torch.ops import launches
+from gpuschedule_tpu_torch.parallel.mesh import Mesh, make_mesh, world_size
 
 ADAMW_WEIGHT_DECAY = 1e-4  # optax.adamw's default
-# The JAX package's mesh axes (``make_mesh``), outermost first; this trainer
-# is the mesh of size 1 on each.
-MESH_AXES = ("pp", "dp", "sp", "tp")
 
 
 def lr_factor(count: int, *, warmup_steps: int = 0, decay_steps: Optional[int] = None) -> float:
@@ -148,51 +156,96 @@ class _Captured:
 
 
 class ShardedTrainer:
-    """Owns a model and optimizer on one device and exposes one step.
+    """Owns a model and optimizer on this rank's device and exposes one step.
 
-    The same surface as the JAX trainer: construct, :meth:`init` once, then
-    :meth:`step` per iteration.  ``flash_attn=True`` puts the CUDA flash
-    kernels (:func:`~gpuschedule_tpu_torch.ops.flash_attention`) in every
-    block.  The device is ``cuda`` unless ``device="cpu"`` is passed."""
+    The same surface as the JAX trainer: construct over a mesh,
+    :meth:`init` once, then :meth:`step` per iteration.  ``mesh`` defaults
+    to :func:`make_mesh` over the world (one rank: the mesh of size 1 on
+    ``device``, the card unless ``device="cpu"``).  ``flash_attn`` puts the
+    CUDA flash kernels (:func:`~gpuschedule_tpu_torch.ops.flash_attention`)
+    in every block; ``ring_attn`` the sp ring, the two together the
+    ring-flash composition.  ``batch_size`` and ``seq_len`` are global."""
 
     def __init__(
         self,
         model_name: str,
+        mesh: Optional[Mesh] = None,
         *,
         batch_size: int = 8,
         seq_len: int = 128,
         learning_rate: float = 1e-3,
+        seq_shard: bool = False,
+        ring_attn: bool = False,
         flash_attn: bool = False,
         warmup_steps: int = 0,
         decay_steps: Optional[int] = None,
         grad_clip: Optional[float] = None,
-        dp: int = 1,
-        sp: int = 1,
-        tp: int = 1,
         device=None,
     ):
-        if (dp, sp, tp) != (1, 1, 1):
+        if mesh is None:
+            mesh = make_mesh(device=device)
+        elif device is not None and torch.device(device).type != mesh.device.type:
+            raise ValueError(f"device {device!r} is not the mesh's {mesh.device}")
+        if mesh.shape["tp"] > 1 or mesh.shape["pp"] > 1:
             raise NotImplementedError(
-                f"only dp=sp=tp=1 is ported (got dp={dp} sp={sp} tp={tp}); "
-                "multi-GPU dp/tp/sp and ring attention are queued in ROADMAP.md"
+                f"tp={mesh.shape['tp']} pp={mesh.shape['pp']}: only dp and sp meshes are "
+                "ported; tensor and pipeline parallelism are queued in ROADMAP.md"
             )
-        self.device = resolve_device(device)
         attn_fn: Optional[Callable] = None
-        if flash_attn:
+        if ring_attn and flash_attn:
+            # the composition: the sp ring across ranks, the flash kernels within
+            if not seq_shard:
+                raise ValueError("ring_attn requires seq_shard=True")
+            from gpuschedule_tpu_torch.parallel.ringflash import ring_flash_attention
+
+            attn_fn = partial(ring_flash_attention, mesh=mesh, causal=True)
+        elif ring_attn:
+            if not seq_shard:
+                raise ValueError("ring_attn requires seq_shard=True")
+            from gpuschedule_tpu_torch.parallel.ringattn import ring_attention
+
+            attn_fn = partial(ring_attention, mesh=mesh, causal=True)
+        elif flash_attn:
+            if seq_shard:
+                raise ValueError("flash_attn keeps S per-device; use ring_attn "
+                                 "for sequence sharding")
             from gpuschedule_tpu_torch.ops import flash_attention
 
             attn_fn = partial(flash_attention, causal=True)
+        self.mesh = mesh
+        self.device = mesh.device
         self.model_name = model_name
         self.attn_fn = attn_fn
         self.cfg = lm_config(model_name)
         if seq_len > self.cfg.max_seq:
             raise ValueError(f"seq_len {seq_len} > model max_seq {self.cfg.max_seq}")
+        dp, sp = mesh.shape["dp"], mesh.shape["sp"]
+        if batch_size % dp != 0:
+            raise ValueError(f"batch {batch_size} not divisible by dp={dp}")
+        if seq_shard and seq_len % sp != 0:
+            raise ValueError(f"seq {seq_len} not divisible by sp={sp}")
+        if seq_shard and sp > 1 and not ring_attn:
+            raise NotImplementedError(
+                "seq_shard without ring_attn (dense attention over a gathered sequence) is "
+                "not ported; see ROADMAP.md"
+            )
         self.batch_size = batch_size
         self.seq_len = seq_len
         self.learning_rate = learning_rate
         self.opt_kwargs = dict(
             warmup_steps=warmup_steps, decay_steps=decay_steps, grad_clip=grad_clip
         )
+        # this rank's share: rows [row0, row0 + rows) and, with seq_shard,
+        # positions [seq_offset, seq_offset + local_seq) of the global batch
+        self.world = world_size()
+        self.rows = batch_size // dp
+        self.row0 = mesh.coordinate("dp") * self.rows
+        split = sp if seq_shard else 1
+        self.local_seq = seq_len // split
+        self.seq_offset = mesh.coordinate("sp") * self.local_seq if seq_shard else 0
+        # the global count of predicted tokens, times the replicas of each
+        # sum: sp ranks hold the same rows when the sequence is not split
+        self.loss_count = batch_size * (seq_len - 1) * (sp // split)
         # the state the graphs below belong to, and its graphs by batch key
         # (None: warmed up, not captured yet)
         self._graph_state: Optional[TrainState] = None
@@ -209,8 +262,9 @@ class ShardedTrainer:
         return TrainState(model, opt)
 
     def make_batch(self, seed: int = 0) -> torch.Tensor:
-        """A (batch, seq) int64 token batch on the device, drawn by
-        :func:`synthetic_lm_batches` so it is the same on every device."""
+        """This rank's share of a (batch, seq) int64 token batch, on the
+        device: the global batch is drawn by :func:`synthetic_lm_batches`,
+        the same on every rank, then sliced (:meth:`to_device`)."""
         tokens = next(synthetic_lm_batches(
             batch_size=self.batch_size, seq_len=self.seq_len,
             vocab=self.cfg.vocab, num_batches=1, seed=seed,
@@ -218,7 +272,13 @@ class ShardedTrainer:
         return self.to_device(tokens)
 
     def to_device(self, tokens: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.asarray(tokens)).long().to(self.device)
+        """This rank's share of a global (batch, seq) token batch, on the
+        device: its dp rows and, with the sequence split, its sp chunk and
+        one token past it, the label of the chunk's last position (the last
+        chunk has none past it).  On one rank, the whole batch."""
+        t = torch.from_numpy(np.asarray(tokens)).long()
+        t = t[self.row0:self.row0 + self.rows, self.seq_offset:self.seq_offset + self.local_seq + 1]
+        return t.to(self.device)
 
     @staticmethod
     def loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
@@ -240,7 +300,12 @@ class ShardedTrainer:
         later call copies the batch into the graph's static buffer and
         replays.  Each call is one real optimizer step.  A new batch shape
         or dtype captures a new graph, as ``jit`` retraces; a new state
-        drops the graphs of the old one.  A capture that fails raises."""
+        drops the graphs of the old one.  A capture that fails raises.
+
+        On more than one rank the step runs eagerly (:meth:`_sharded_step`):
+        no capture of a step with collectives is checked yet."""
+        if self.world > 1:
+            return self._sharded_step(state, tokens)
         if self.device.type != "cuda":
             return self._eager_step(state, tokens)
         if state is not self._graph_state:
@@ -266,6 +331,31 @@ class ShardedTrainer:
         loss.backward()
         state.optimizer.step()
         return state, loss.detach()
+
+    def _sharded_step(self, state: TrainState, tokens: torch.Tensor) -> Tuple[TrainState, torch.Tensor]:
+        """One rank's step: its share of the batch (:meth:`to_device`), the
+        loss as its sum over the global count, the gradients and the loss
+        summed over the world, then the same update on every rank.  Returns
+        the global mean loss."""
+        state.optimizer.zero_grad()
+        labels = tokens[:, 1:]
+        logits = state.model(tokens[:, :self.local_seq], pos_offset=self.seq_offset)
+        v = logits.shape[-1]
+        loss = F.cross_entropy(logits[:, :labels.shape[1]].reshape(-1, v), labels.reshape(-1),
+                               reduction="sum") / self.loss_count
+        loss.backward()
+        params = list(state.model.parameters())
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat)
+        offset = 0
+        for p, g in zip(params, grads):
+            p.grad = flat[offset:offset + g.numel()].view_as(g)
+            offset += g.numel()
+        state.optimizer.step()
+        loss = loss.detach().clone()
+        dist.all_reduce(loss)
+        return state, loss
 
     def _warm_up(self, state: TrainState, tokens: torch.Tensor) -> Tuple[TrainState, torch.Tensor]:
         """One eager step on a side stream, as PyTorch asks before a capture."""

@@ -34,6 +34,8 @@ struct dim3 {
 struct emu_uint3 { unsigned x, y, z; };
 inline emu_uint3 threadIdx, blockIdx;  // set for the thread the scheduler resumes
 
+struct float2 { float x, y; };
+inline float2 make_float2(float a, float b) { return {a, b}; }
 struct float4 { float x, y, z, w; };
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 struct uint4 { uint32_t x, y, z, w; };

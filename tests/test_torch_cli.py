@@ -12,7 +12,7 @@ jax = pytest.importorskip("jax")
 from gpuschedule_tpu.cli import main as jax_main  # noqa: E402
 from gpuschedule_tpu.parallel.mesh import AXES as JAX_AXES  # noqa: E402
 from gpuschedule_tpu_torch.cli import main  # noqa: E402
-from gpuschedule_tpu_torch.parallel.train import MESH_AXES  # noqa: E402
+from gpuschedule_tpu_torch.parallel.mesh import AXES as MESH_AXES  # noqa: E402
 
 ARGS = ["train", "--model", "transformer-tiny", "--steps", "3", "--batch-size", "2",
         "--seq-len", "32"]

@@ -14,7 +14,10 @@ order at small shapes; they say nothing of speed.
 
 Tolerances are ``chip_smoke.py``'s for the card (the kernels' products run
 in another order than the plain versions' matmuls): 2e-2 absolute on the
-output, 1e-3 on lse, 2e-2 of the largest entry on dq, dk and dv.
+output, 1e-3 on lse, 2e-2 of the largest entry on dq, dk and dv.  The f32
+output form of each kernel (the ring's chunk form) is held to the same
+bounds against the plain versions' f32 outputs, and, rounded to bf16, to
+the bf16 form bit for bit: the two differ only in the epilogue's store.
 """
 
 import ctypes
@@ -65,10 +68,33 @@ def emulated(tmp_path_factory):
     assert res.returncode == 0, res.stderr
     emu = ctypes.CDLL(str(lib))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    emu.emu_flash_fwd.argtypes = [p] * 5 + [i, i, i, i, f, i]
-    emu.emu_flash_bwd_dkdv.argtypes = [p] * 8 + [i, i, i, i, f, i]
-    emu.emu_flash_bwd_dq.argtypes = [p] * 7 + [i, i, i, i, f, i]
+    # B, S, H, D, scale, causal, out_f32
+    emu.emu_flash_fwd.argtypes = [p] * 5 + [i, i, i, i, f, i, i]
+    emu.emu_flash_bwd_dkdv.argtypes = [p] * 8 + [i, i, i, i, f, i, i]
+    emu.emu_flash_bwd_dq.argtypes = [p] * 7 + [i, i, i, i, f, i, i]
     return emu
+
+
+def _run_emulated(emu, q, k, v, g, causal, out_dtype):
+    """(out, lse, dq, dk, dv) of the three emulated kernels with outputs in
+    ``out_dtype``; the backward takes the plain forward's lse and delta, as
+    on the card."""
+    b, s, h, d = q.shape
+    scale, f32 = d ** -0.5, int(out_dtype == torch.float32)
+    out, lse = torch.empty_like(q, dtype=out_dtype), torch.empty(b * h, s)
+    assert emu.emu_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                             lse.data_ptr(), b, s, h, d, scale, int(causal), f32) == 0
+    out_p, lse_p = fa.flash_fwd_plain(q, k, v, causal)
+    delta = fa.attention_delta(out_p, g)
+    dq, dk, dv = (torch.empty_like(q, dtype=out_dtype) for _ in range(3))
+    assert emu.emu_flash_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse_p.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), b, s, h, d, scale, int(causal), f32) == 0
+    assert emu.emu_flash_bwd_dkdv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse_p.data_ptr(),
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, h, d, scale, int(causal),
+        f32) == 0
+    return out, lse, dq, dk, dv
 
 
 @pytest.mark.parametrize("shape,causal", CASES)
@@ -83,7 +109,7 @@ def test_emulated_tensor_core_kernels_match_plain(emulated, shape, causal):
 
     out, lse = torch.empty_like(q), torch.empty(b * h, s)
     assert emulated.emu_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                  lse.data_ptr(), b, s, h, d, scale, int(causal)) == 0
+                                  lse.data_ptr(), b, s, h, d, scale, int(causal), 0) == 0
     out_p, lse_p = fa.flash_fwd_plain(q, k, v, causal)
     assert (out.float() - out_p.float()).abs().max().item() < 2e-2
     assert (lse - lse_p).abs().max().item() < 1e-3
@@ -92,7 +118,8 @@ def test_emulated_tensor_core_kernels_match_plain(emulated, shape, causal):
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     assert emulated.emu_flash_bwd_dkdv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse_p.data_ptr(),
-        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, h, d, scale, int(causal)) == 0
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, h, d, scale, int(causal),
+        0) == 0
     dk_p, dv_p = fa.flash_bwd_dkdv_plain(q, k, v, g, lse_p, delta, causal)
     for got, ref in ((dk, dk_p), (dv, dv_p)):
         rel = (got.float() - ref.float()).abs().max().item() / ref.float().abs().max().item()
@@ -114,7 +141,37 @@ def test_emulated_dq_kernel_matches_plain(emulated, shape, causal):
     dq = torch.empty_like(q)
     assert emulated.emu_flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse_p.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), b, s, h, d, d ** -0.5, int(causal)) == 0
+        delta.data_ptr(), dq.data_ptr(), b, s, h, d, d ** -0.5, int(causal), 0) == 0
     dq_p = fa.flash_bwd_dq_plain(q, k, v, g, lse_p, delta, causal)
     rel = (dq.float() - dq_p.float()).abs().max().item() / dq_p.float().abs().max().item()
     assert rel < 2e-2, rel
+
+
+@pytest.mark.parametrize("shape,causal", CASES)
+def test_emulated_f32_output_forms_match_plain(emulated, shape, causal):
+    """The f32-output forms of ``fwd_mma_kernel``, ``dq_mma_kernel`` and
+    ``dkdv_mma_kernel`` (bf16 inputs, the ring's chunk form) against the
+    plain versions with ``out_dtype=torch.float32``, within the bounds
+    above; and each output rounded to bf16 equals the bf16 form's bit for
+    bit, since only the epilogue's store differs."""
+    gen = torch.Generator().manual_seed(shape[1] + shape[3])
+    q, k, v, g = (torch.randn(shape, generator=gen).to(torch.bfloat16) for _ in range(4))
+    out, lse, dq, dk, dv = _run_emulated(emulated, q, k, v, g, causal, torch.float32)
+    for t in (out, dq, dk, dv):
+        assert t.dtype == torch.float32
+
+    out_p, lse_p = fa.flash_fwd_plain(q, k, v, causal, out_dtype=torch.float32)
+    assert out_p.dtype == torch.float32
+    assert (out - out_p).abs().max().item() < 2e-2
+    assert (lse - lse_p).abs().max().item() < 1e-3
+    delta = fa.attention_delta(fa.flash_fwd_plain(q, k, v, causal)[0], g)
+    refs = (fa.flash_bwd_dq_plain(q, k, v, g, lse_p, delta, causal, out_dtype=torch.float32),
+            *fa.flash_bwd_dkdv_plain(q, k, v, g, lse_p, delta, causal, out_dtype=torch.float32))
+    for got, ref in zip((dq, dk, dv), refs):
+        assert ref.dtype == torch.float32
+        rel = (got - ref).abs().max().item() / ref.abs().max().item()
+        assert rel < 2e-2, rel
+
+    bf16 = _run_emulated(emulated, q, k, v, g, causal, torch.bfloat16)
+    for wide, narrow in zip((out, lse, dq, dk, dv), bf16):
+        assert torch.equal(wide.to(narrow.dtype), narrow)
