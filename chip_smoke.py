@@ -93,7 +93,10 @@ Phases, each fatal on failure (exit code 1, no result line):
    (its main path: the counts are set to 0 just before it); (iv) the dense
    ring in process at sp = 4 on transformer-long's shape against the dense
    oracle; (v) the ``train`` CLI under ``torchrun`` on a one-rank NCCL mesh
-   (``--ring-attn --flash-attn --sp 1``, 3 steps): a finite, falling loss;
+   (``--ring-attn --flash-attn --sp 1``, 3 steps): a finite, falling loss.
+   (v) checks only that the launcher, a one-rank NCCL group and
+   ``init_device_mesh`` start: at sp = 1 the ring is the flash op and one
+   rank runs the captured step, so it runs no ring code;
    a ``{"ring": ...}`` line;
 12. a ``{"train": ...}`` line, a ``{"kernels": [...]}`` line (the five
    kernels and the three f32 forms), and last the ``{"ok": true, "device":
@@ -899,7 +902,9 @@ def ring_cli() -> dict:
     """Phase 11 (v): ``train --ring-attn --flash-attn --sp 1`` under
     ``torchrun`` (one rank: a one-rank NCCL mesh), transformer-long b2 x
     S4096, 3 steps; its summary line must show the mesh and a finite,
-    falling loss."""
+    falling loss.  It checks that the launcher, a one-rank NCCL group and
+    ``init_device_mesh`` start, no more: at sp = 1 the ring is the flash op
+    and one rank runs the captured step, so no ring code runs here."""
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
            "1", "-m", "gpuschedule_tpu_torch", "train", "--model", "transformer-long",
            "--steps", "3", "--batch-size", "2", "--seq-len", "4096", "--sp", "1",

@@ -380,22 +380,19 @@ def attention_delta(out: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bshd,bshd->bhs", g.float(), out.float()).reshape(b * h, s).contiguous()
 
 
-def flash_chunk_fwd(q, k, v, *, causal: bool, block_q: Optional[int] = None,
-                    block_k: Optional[int] = None):
+def flash_chunk_fwd(q, k, v, *, causal: bool):
     """(out, lse_rows) of one (q-chunk, k-chunk) pair, the per-chunk op of
     the ring (:mod:`gpuschedule_tpu_torch.parallel.ringflash`), as the JAX
     package's ``flash_chunk_fwd``: out f32 in (B, S, H, D), so the ring's
     merge takes it unrounded, and lse as f32 (B, H, S) rows for the
     associative (out, lse) merge.  Not differentiable on its own: the ring
-    has its own backward, a second ring pass over :func:`flash_chunk_bwd`.
-    ``block_q`` is the JAX signature's; the forward tiles keys only."""
+    has its own backward, a second ring pass over :func:`flash_chunk_bwd`."""
     b, s, h, _ = q.shape
-    out, lse = flash_fwd(q, k, v, causal=causal, block_k=block_k, out_dtype=torch.float32)
+    out, lse = flash_fwd(q, k, v, causal=causal, out_dtype=torch.float32)
     return out, lse.view(b, h, s)
 
 
-def flash_chunk_bwd(q, k, v, out, lse_rows, g, *, causal: bool,
-                    block_q: Optional[int] = None, block_k: Optional[int] = None):
+def flash_chunk_bwd(q, k, v, out, lse_rows, g, *, causal: bool):
     """f32 (dq, dk, dv) of one (q-chunk, k-chunk) pair given the **global**
     logsumexp rows (B, H, S): p = exp(s − lse) is then the pair's share of
     the whole softmax, so the pairs' contributions sum to the gradient.
@@ -404,10 +401,8 @@ def flash_chunk_bwd(q, k, v, out, lse_rows, g, *, causal: bool,
     b, s, h, _ = q.shape
     lse = lse_rows.reshape(b * h, s).contiguous()
     delta = attention_delta(out, g)
-    dq = flash_bwd_dq(q, k, v, g, lse, delta, causal=causal, block_k=block_k,
-                      out_dtype=torch.float32)
-    dk, dv = flash_bwd_dkdv(q, k, v, g, lse, delta, causal=causal, block_q=block_q,
-                            out_dtype=torch.float32)
+    dq = flash_bwd_dq(q, k, v, g, lse, delta, causal=causal, out_dtype=torch.float32)
+    dk, dv = flash_bwd_dkdv(q, k, v, g, lse, delta, causal=causal, out_dtype=torch.float32)
     return dq, dk, dv
 
 

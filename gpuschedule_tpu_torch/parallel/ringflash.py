@@ -72,25 +72,25 @@ def _pair_causal(my: int, src: int, causal: bool) -> Optional[bool]:
     return False if src < my else None
 
 
-def _fwd_pair(q, k_blk, v_blk, run, my, src, causal, blocks):
+def _fwd_pair(q, k_blk, v_blk, run, my, src, causal):
     """One rank's forward step: the pair's chunk op, merged into ``run``."""
     pair = _pair_causal(my, src, causal)
     if pair is None:
         return run
-    out_i, lse_i = flash_chunk_fwd(q, k_blk, v_blk, causal=pair, **blocks)
+    out_i, lse_i = flash_chunk_fwd(q, k_blk, v_blk, causal=pair)
     return _merge(*run, out_i, lse_i)
 
 
-def _bwd_pair(q, k_blk, v_blk, out, lse, g, acc, my, src, causal, blocks):
+def _bwd_pair(q, k_blk, v_blk, out, lse, g, acc, my, src, causal):
     """One rank's backward step: the pair's (dq, dk, dv), added to ``acc``."""
     pair = _pair_causal(my, src, causal)
     if pair is None:
         return acc
-    grads = flash_chunk_bwd(q, k_blk, v_blk, out, lse, g, causal=pair, **blocks)
+    grads = flash_chunk_bwd(q, k_blk, v_blk, out, lse, g, causal=pair)
     return tuple(a + c for a, c in zip(acc, grads))
 
 
-def _ring_forward(ring, qs, ks, vs, causal, blocks):
+def _ring_forward(ring, qs, ks, vs, causal):
     """[(out in q's dtype, lse rows)] for each rank held here."""
     runs = []
     for q in qs:
@@ -101,13 +101,13 @@ def _ring_forward(ring, qs, ks, vs, causal, blocks):
     for step in range(ring.size):
         for i, my in enumerate(ring.ranks):
             runs[i] = _fwd_pair(qs[i], *kv[i], runs[i], my, (my - step) % ring.size,
-                                causal, blocks)
+                                causal)
         if step + 1 < ring.size:
             kv = ring.rotate(kv)
     return [(out.to(q.dtype), lse) for (out, lse), q in zip(runs, qs)]
 
 
-def _ring_backward(ring, qs, ks, vs, outs, lses, gs, causal, blocks):
+def _ring_backward(ring, qs, ks, vs, outs, lses, gs, causal):
     """[(dq, dk, dv) in f32] for each rank held here: the second ring pass."""
     f32 = lambda x: torch.zeros(x.shape, dtype=torch.float32, device=x.device)  # noqa: E731
     dqs = [f32(q) for q in qs]
@@ -117,7 +117,7 @@ def _ring_backward(ring, qs, ks, vs, outs, lses, gs, causal, blocks):
             k_blk, v_blk, dk, dv = riding[i]
             dqs[i], dk, dv = _bwd_pair(qs[i], k_blk, v_blk, outs[i], lses[i], gs[i],
                                        (dqs[i], dk, dv), my, (my - step) % ring.size,
-                                       causal, blocks)
+                                       causal)
             riding[i] = (k_blk, v_blk, dk, dv)
         if step + 1 < ring.size:
             riding = ring.rotate(riding)
@@ -127,12 +127,12 @@ def _ring_backward(ring, qs, ks, vs, outs, lses, gs, causal, blocks):
 
 class _RingFlash(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, ring, causal, blocks):
+    def forward(ctx, q, k, v, ring, causal):
         qs, ks, vs = ring.split(q), ring.split(k), ring.split(v)
-        results = _ring_forward(ring, qs, ks, vs, causal, blocks)
+        results = _ring_forward(ring, qs, ks, vs, causal)
         outs = [o for o, _ in results]
         ctx.save_for_backward(*qs, *ks, *vs, *outs, *(lse for _, lse in results))
-        ctx.ring, ctx.causal, ctx.blocks = ring, causal, blocks
+        ctx.ring, ctx.causal = ring, causal
         return ring.join(outs)
 
     @staticmethod
@@ -141,33 +141,27 @@ class _RingFlash(torch.autograd.Function):
         saved = ctx.saved_tensors
         qs, ks, vs, outs, lses = (list(saved[i * n:(i + 1) * n]) for i in range(5))
         gs = ctx.ring.split(g.contiguous().to(qs[0].dtype))
-        grads = _ring_backward(ctx.ring, qs, ks, vs, outs, lses, gs, ctx.causal, ctx.blocks)
+        grads = _ring_backward(ctx.ring, qs, ks, vs, outs, lses, gs, ctx.causal)
         dq, dk, dv = (ctx.ring.join([gr[j] for gr in grads]) for j in range(3))
-        return dq.to(qs[0].dtype), dk.to(ks[0].dtype), dv.to(vs[0].dtype), None, None, None
+        return dq.to(qs[0].dtype), dk.to(ks[0].dtype), dv.to(vs[0].dtype), None, None
 
 
 def ring_flash_attention(q, k, v, *, mesh: Optional[Mesh] = None, axis: str = "sp",
-                         causal: bool = True, block_q: Optional[int] = None,
-                         block_k: Optional[int] = None) -> torch.Tensor:
+                         causal: bool = True) -> torch.Tensor:
     """Attention over (B, L, H, D) chunks of a sequence split over the mesh
     axis ``axis``, the flash kernels as the per-chunk op; the calling
     contract of :func:`~gpuschedule_tpu_torch.parallel.ringattn.ring_attention`.
-    ``sp == 1`` is :func:`~gpuschedule_tpu_torch.ops.flash_attention` itself.
-    On CUDA tensors the kernels tile at 64 (blocks other than None or 64
-    raise); on CPU tensors the plain versions take ``block_q``/``block_k``."""
+    ``sp == 1`` is :func:`~gpuschedule_tpu_torch.ops.flash_attention` itself."""
     shape = resolve_ring_mesh(mesh, axis)
     if shape[axis] == 1:
-        return flash_attention(q, k, v, causal=causal, block_q=block_q, block_k=block_k)
-    return _RingFlash.apply(q, k, v, ProcessRing(mesh, axis), causal,
-                            dict(block_q=block_q, block_k=block_k))
+        return flash_attention(q, k, v, causal=causal)
+    return _RingFlash.apply(q, k, v, ProcessRing(mesh, axis), causal)
 
 
-def ring_flash_attention_in_process(q, k, v, *, sp: int, causal: bool = True,
-                                    block_q: Optional[int] = None,
-                                    block_k: Optional[int] = None) -> torch.Tensor:
+def ring_flash_attention_in_process(q, k, v, *, sp: int,
+                                    causal: bool = True) -> torch.Tensor:
     """:func:`ring_flash_attention` with the ``sp`` ranks of the ring held in
     this process, over the whole (B, S, H, D) sequence on one device."""
     if sp == 1:
-        return flash_attention(q, k, v, causal=causal, block_q=block_q, block_k=block_k)
-    return _RingFlash.apply(q, k, v, local_ring(q, sp), causal,
-                            dict(block_q=block_q, block_k=block_k))
+        return flash_attention(q, k, v, causal=causal)
+    return _RingFlash.apply(q, k, v, local_ring(q, sp), causal)

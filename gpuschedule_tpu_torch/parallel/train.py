@@ -136,6 +136,19 @@ def make_optimizer(
     return Optimizer(adamw, sched, grad_clip)
 
 
+def _all_reduce_grads(model: torch.nn.Module) -> None:
+    """Sum every parameter's gradient over the world in one flat all-reduce
+    (a parameter without one counts as zeros)."""
+    params = list(model.parameters())
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat)
+    offset = 0
+    for p, g in zip(params, grads):
+        p.grad = flat[offset:offset + g.numel()].view_as(g)
+        offset += g.numel()
+
+
 @dataclass
 class TrainState:
     """What the JAX trainer carries as ``(params, opt_state)``."""
@@ -240,12 +253,14 @@ class ShardedTrainer:
         self.world = world_size()
         self.rows = batch_size // dp
         self.row0 = mesh.coordinate("dp") * self.rows
-        split = sp if seq_shard else 1
-        self.local_seq = seq_len // split
+        self.dp = dp
+        self.split = sp if seq_shard else 1
+        self.local_seq = seq_len // self.split
         self.seq_offset = mesh.coordinate("sp") * self.local_seq if seq_shard else 0
-        # the global count of predicted tokens, times the replicas of each
-        # sum: sp ranks hold the same rows when the sequence is not split
-        self.loss_count = batch_size * (seq_len - 1) * (sp // split)
+        # the last chunk has no label past it; sp ranks hold the same rows
+        # (replicas of each loss sum) when the sequence is not split
+        self.last_chunk = not seq_shard or mesh.coordinate("sp") == sp - 1
+        self.replicas = sp // self.split
         # the state the graphs below belong to, and its graphs by batch key
         # (None: warmed up, not captured yet)
         self._graph_state: Optional[TrainState] = None
@@ -281,12 +296,25 @@ class ShardedTrainer:
         return t.to(self.device)
 
     @staticmethod
-    def loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-        """Mean next-token cross-entropy on f32 logits."""
+    def loss(logits: torch.Tensor, tokens: torch.Tensor,
+             count: Optional[int] = None) -> torch.Tensor:
+        """Next-token cross-entropy on f32 logits: the sum over the labels
+        ``tokens[:, 1:]`` (one past the logits' positions at most) divided
+        by ``count``, by default the number of labels (the mean)."""
+        labels = tokens[:, 1:]
         v = logits.shape[-1]
-        return F.cross_entropy(
-            logits[:, :-1].reshape(-1, v), tokens[:, 1:].reshape(-1)
-        )
+        total = F.cross_entropy(logits[:, :labels.shape[1]].reshape(-1, v),
+                                labels.reshape(-1), reduction="sum")
+        return total / (labels.numel() if count is None else count)
+
+    def _loss(self, model: torch.nn.Module, tokens: torch.Tensor) -> torch.Tensor:
+        """This rank's share of the global mean loss on its share of the
+        batch (:meth:`to_device`): its sum divided by the global count of
+        labels, times the replicas of each sum.  On one rank, the mean."""
+        chunk = tokens if self.last_chunk else tokens[:, :-1]
+        rows, n = chunk.shape
+        count = rows * self.dp * (n * self.split - 1) * self.replicas
+        return self.loss(model(chunk, pos_offset=self.seq_offset), tokens, count)
 
     def step(self, state: TrainState, tokens: torch.Tensor) -> Tuple[TrainState, torch.Tensor]:
         """One optimizer step; returns ``(state, loss)``.  The loss stays on
@@ -302,11 +330,9 @@ class ShardedTrainer:
         or dtype captures a new graph, as ``jit`` retraces; a new state
         drops the graphs of the old one.  A capture that fails raises.
 
-        On more than one rank the step runs eagerly (:meth:`_sharded_step`):
+        On more than one rank the step runs eagerly (:meth:`_eager_step`):
         no capture of a step with collectives is checked yet."""
-        if self.world > 1:
-            return self._sharded_step(state, tokens)
-        if self.device.type != "cuda":
+        if self.world > 1 or self.device.type != "cuda":
             return self._eager_step(state, tokens)
         if state is not self._graph_state:
             self._graphs.clear()
@@ -325,36 +351,19 @@ class ShardedTrainer:
         return state, captured.loss.clone()
 
     def _eager_step(self, state: TrainState, tokens: torch.Tensor) -> Tuple[TrainState, torch.Tensor]:
-        """The step as plain PyTorch calls, one launch at a time."""
+        """The step as plain PyTorch calls, one launch at a time.  On more
+        than one rank the gradients and the loss are summed over the world
+        before the update (the JAX step's psum): every rank makes the same
+        update and returns the global mean loss."""
         state.optimizer.zero_grad()
-        loss = self.loss(state.model(tokens), tokens)
+        loss = self._loss(state.model, tokens)
         loss.backward()
+        if self.world > 1:
+            _all_reduce_grads(state.model)
         state.optimizer.step()
-        return state, loss.detach()
-
-    def _sharded_step(self, state: TrainState, tokens: torch.Tensor) -> Tuple[TrainState, torch.Tensor]:
-        """One rank's step: its share of the batch (:meth:`to_device`), the
-        loss as its sum over the global count, the gradients and the loss
-        summed over the world, then the same update on every rank.  Returns
-        the global mean loss."""
-        state.optimizer.zero_grad()
-        labels = tokens[:, 1:]
-        logits = state.model(tokens[:, :self.local_seq], pos_offset=self.seq_offset)
-        v = logits.shape[-1]
-        loss = F.cross_entropy(logits[:, :labels.shape[1]].reshape(-1, v), labels.reshape(-1),
-                               reduction="sum") / self.loss_count
-        loss.backward()
-        params = list(state.model.parameters())
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
-        flat = torch.cat([g.reshape(-1) for g in grads])
-        dist.all_reduce(flat)
-        offset = 0
-        for p, g in zip(params, grads):
-            p.grad = flat[offset:offset + g.numel()].view_as(g)
-            offset += g.numel()
-        state.optimizer.step()
-        loss = loss.detach().clone()
-        dist.all_reduce(loss)
+        loss = loss.detach()
+        if self.world > 1:
+            dist.all_reduce(loss)
         return state, loss
 
     def _warm_up(self, state: TrainState, tokens: torch.Tensor) -> Tuple[TrainState, torch.Tensor]:
@@ -375,7 +384,7 @@ class ShardedTrainer:
         state.optimizer.zero_grad()  # the grads are allocated in the graph's pool
         graph = torch.cuda.CUDAGraph()
         with launches.recording() as recorded, torch.cuda.graph(graph):
-            loss = self.loss(state.model(static), static)
+            loss = self._loss(state.model, static)
             loss.backward()
             state.optimizer.update()
         return _Captured(graph, static, loss.detach(), recorded)

@@ -11,7 +11,10 @@ Each rank (``tests/torch_ring_worker.py``) checks:
    JAX trainer's parameters on the same global batches: the losses agree
    with the JAX trainer's on a dp = 2 x sp = 2 mesh of the virtual CPU
    devices within 5e-3 (``tests/test_torch_train.py``'s bound: bf16 logits
-   that differ by an ulp, averaged over the batch), on every rank;
+   that differ by an ulp, averaged over the batch), on every rank.  The
+   loss is all-reduced, so the ranks agree on it by construction; the
+   parameters after the steps show the gradient sum: equal on every rank,
+   and each one's update close to the JAX trainer's (``UPDATE_RTOL``);
 3. the ``train`` CLI on the same group (``--sp 2 --ring-attn
    --flash-attn``): rank 0 prints the summary line, with the mesh's shape;
 4. a tp = 2 mesh makes the trainer raise (ROADMAP.md).
@@ -37,6 +40,12 @@ from gpuschedule_tpu_torch.data import synthetic_lm_batches  # noqa: E402
 
 TIMEOUT_S = 300
 MODEL = "transformer-tiny"
+# relative L2 distance of a parameter's update over the three steps from the
+# JAX trainer's.  adam normalizes each gradient entry, so entries whose
+# gradients are small (embedding rows of rare tokens) move on bf16 rounding;
+# the largest seen is 0.16 (the embedding), where dk/dv accumulators left
+# one hop short of home give more than 1 on most parameters.
+UPDATE_RTOL = 0.3
 
 
 def _wait(ctx, deadline):
@@ -77,8 +86,22 @@ def test_process_group_ring_and_trainer_on_four_gloo_ranks(tmp_path):
         for tokens in batches:  # the JAX trainer's steps, while the ranks run
             state, loss = jt.step(state, jnp.asarray(tokens))
             ref.append(float(loss))
+        ref_params = params_from_jax(jax.device_get(state[0]), jt.cfg)
     finally:
         _wait(ctx, deadline)
+
+    # the parameters after the steps: the same on every rank, to the bit, and
+    # each parameter's update within UPDATE_RTOL of the JAX trainer's
+    ranks = [np.load(tmp_path / f"rank{r}.npz") for r in range(torch_ring_worker.WORLD)]
+    for name, p0 in params.items():
+        for other in ranks[1:]:
+            np.testing.assert_array_equal(other[name], ranks[0][name], err_msg=name)
+        if name.endswith("attn.key.bias"):
+            continue  # its exact gradient is 0: adam moves it on rounding noise
+        ref_update = ref_params[name].numpy() - p0.numpy()
+        update = ranks[0][name] - p0.numpy()
+        rel = np.linalg.norm(update - ref_update) / np.linalg.norm(ref_update)
+        assert rel < UPDATE_RTOL, (name, rel)
 
     found = [json.loads((tmp_path / f"rank{r}.json").read_text())
              for r in range(torch_ring_worker.WORLD)]
@@ -89,7 +112,6 @@ def test_process_group_ring_and_trainer_on_four_gloo_ranks(tmp_path):
         # dp rows and the sp chunk, plus the next token as the chunk's last label
         assert f["local_tokens"] == [2, 33 if f["coords"][1] == 0 else 32]
         np.testing.assert_allclose(f["losses"], ref, atol=5e-3, rtol=0)
-        assert f["losses"] == found[0]["losses"]  # the global mean, on every rank
         assert f["cli_rc"] == 0
         assert f["tp_error"] is not None and "ROADMAP" in f["tp_error"]
     lines = [f["cli_out"].strip() for f in found]

@@ -3,7 +3,8 @@
 Imports nothing of JAX (each of the four processes would pay for it).  The
 ranks meet through a ``FileStore`` under the test's ``tmp_path``, so
 parallel test workers cannot collide on a port.  Each rank writes what it
-found to ``rank<r>.json`` in the output directory.
+found to ``rank<r>.json`` and its trainer's parameters after the steps to
+``rank<r>.npz`` in the output directory.
 """
 
 from __future__ import annotations
@@ -36,13 +37,15 @@ def run(rank: int, store: str, data: str, out_dir: str) -> None:
     dist.init_process_group("gloo", store=dist.FileStore(store, WORLD), rank=rank,
                             world_size=WORLD)
     try:
-        found = _checks(np.load(data))
+        found, params = _checks(np.load(data))
     finally:
         dist.destroy_process_group()
+    np.savez(Path(out_dir, f"rank{rank}.npz"), **params)
     Path(out_dir, f"rank{rank}.json").write_text(json.dumps(found))
 
 
-def _checks(data) -> dict:
+def _checks(data) -> tuple:
+    """What this rank found, and its trainer's parameters after the steps."""
     mesh = make_mesh(dp=2, sp=2, device="cpu")
     found = {"coords": [mesh.coordinate(a) for a in ("dp", "sp")], "rings": {}}
 
@@ -79,6 +82,7 @@ def _checks(data) -> dict:
         state, loss = trainer.step(state, trainer.to_device(tokens))
         found["losses"].append(float(loss))
     found["local_tokens"] = list(trainer.to_device(data["tokens"][0]).shape)
+    params = {name: p.detach().numpy() for name, p in state.model.named_parameters()}
 
     # 3. the train CLI on the same group: rank 0 prints the summary line
     buf = io.StringIO()
@@ -94,4 +98,4 @@ def _checks(data) -> dict:
         found["tp_error"] = None
     except NotImplementedError as e:
         found["tp_error"] = str(e)
-    return found
+    return found, params
