@@ -98,9 +98,25 @@ Phases, each fatal on failure (exit code 1, no result line):
    ``init_device_mesh`` start: at sp = 1 the ring is the flash op and one
    rank runs the captured step, so it runs no ring code;
    a ``{"ring": ...}`` line;
-12. a ``{"train": ...}`` line, a ``{"kernels": [...]}`` line (the five
-   kernels and the three f32 forms), and last the ``{"ok": true, "device":
-   {...}}`` line.
+12. zoo — the MoE and ResNet families at full width on the bench's batch
+   (``zoo_phase``): transformer-moe and transformer-moe-top2 at b16 x S512
+   and resnet-mid at b16 x 32x32, each a captured step (phase 5's checks:
+   captured against eager losses within LOSS_RTOL, no host sync in 3
+   replays, a finite falling loss), with its ms, tokens/s or samples/s,
+   MFU, busy share and top device operations from a profiler window; each
+   MoE's dispatch and combine einsums timed alone (their share of the
+   step); transformer-moe under the flash op, whose path (the counts set
+   to 0 just before it) must launch K1-K3, MOE_FLASH_PER_STEP a replayed
+   step by the counters and by the profiler, its first loss within
+   LOSS_RTOL of the dense-attention step's, and K1-K3 against their plain
+   versions at the attention shape that step gives them (16, 512, 8, 32)
+   bf16 causal, within phase 3's bounds; ``profile_model`` for
+   resnet-mid and transformer-moe, whose curve entries must have phase 9's
+   form; ``bench.child_main("resnet-mid")``, which must report samples/s;
+   a ``{"zoo": ...}`` line;
+13. a ``{"train": ...}`` line, a ``{"kernels": [...]}`` line (the five
+   kernels and the three f32 forms; K1-K3 with their launches on the MoE +
+   flash path too), and last the ``{"ok": true, "device": {...}}`` line.
 
 Exits non-zero when CUDA is unavailable or the port cannot be imported.
 """
@@ -177,6 +193,12 @@ PROFILE_RTOL = 0.15  # profiled k = 1 step vs phase 6's step: same model, batch,
 # what profile_model may leave allocated: not a trainer (GBs of activations in
 # its graph's pool), at most a library's workspace for a new stream
 PROFILE_KEPT_MIB = 256
+# phase 12: the zoo's MoE and ResNet families, (model, batch, seq) at the
+# bench's batch and S; the CNN has no seq (its images are 32x32)
+ZOO_CELLS = (("transformer-moe", 16, 512), ("transformer-moe-top2", 16, 512),
+             ("resnet-mid", 16, None))
+ZOO_PROFILE = ("resnet-mid", "transformer-moe")
+MOE_FLASH_PER_STEP = {"flash_fwd": 4, "flash_bwd_dq": 4, "flash_bwd_dkdv": 4}  # 4 layers
 ROOT = Path(__file__).resolve().parent
 
 
@@ -563,7 +585,7 @@ def profile_phase(torch, smi, dense_s, model="transformer-large", batch=16, seq=
         with open(trace) as f:
             events = json.load(f).get("traceEvents", [])
         return {
-            "model": model, "batch": batch, "seq": seq, "card": smi,
+            "model": model, "batch": batch, "seq": seq, "card": smi, "entry_keys": sorted(entry),
             "theta": list(curve.theta), "source": entry["source"], "points": entry["points"],
             "multislice": entry.get("multislice"), "measured_ms": measured_s * 1e3,
             "dense_step_ms": dense_s * 1e3, "rel_to_dense": rel, "profile_s": profile_s,
@@ -925,6 +947,194 @@ def ring_cli() -> dict:
     return line
 
 
+def moe_einsum_ms(torch, state, batch, ms) -> dict:
+    """Phase 12: the MoE's dispatch and combine einsums alone, as the step
+    runs them in block 0 (its input from a forward hook on the step's
+    batch, its routing): forward (``td,tec->ecd`` and ``ecd,tec->td``) and
+    backward (x's gradient through dispatch; out's and combine's through
+    combine, which carries the gates' gradient), by CUDA events; and the
+    routing that builds dispatch and combine, forward only."""
+    moe = state.model.blocks[0].moe
+    grab = {}
+    hook = moe.register_forward_pre_hook(lambda mod, args: grab.setdefault("x", args[0]))
+    with torch.no_grad():
+        state.model(batch)
+    hook.remove()
+    x = grab["x"].detach()
+    with torch.no_grad():
+        dispatch, combine, _ = moe.route(x)
+    t, d = x.shape[0] * x.shape[1], x.shape[2]
+    e, cap = dispatch.shape[1], dispatch.shape[2]
+    gen = torch.Generator(device=x.device).manual_seed(0)
+    xf = x.reshape(t, d).requires_grad_(True)
+    out, g_in = (torch.randn((e, cap, d), generator=gen, device=x.device).to(torch.bfloat16)
+                 for _ in range(2))
+    out.requires_grad_(True)
+    g_y = torch.randn((t, d), generator=gen, device=x.device).to(torch.bfloat16)
+    comb = combine.detach().requires_grad_(True)
+
+    def fwd_bwd():
+        expert_in = torch.einsum("td,tec->ecd", xf, dispatch)
+        y = torch.einsum("ecd,tec->td", out, comb)
+        return torch.autograd.grad((expert_in, y), (xf, out, comb), (g_in, g_y))
+
+    with torch.no_grad():
+        route_ms = ms(lambda: moe.route(x), 10)
+    return {"tokens": t, "experts": e, "capacity": cap, "d_model": d,
+            "einsums_fwd_bwd_ms": ms(fwd_bwd, 10), "route_fwd_ms": route_ms,
+            "buffer_mib": dispatch.numel() * 2 / 2**20}
+
+
+def zoo_cell(torch, fa, ms, model, batch, seq, peaks, flash=False) -> dict:
+    """Phase 12, one cell: ``model``'s captured step at ``batch`` (and
+    ``seq`` for an LM), as phase 5 runs the flash step: 5 steps (a
+    warm-up, the capture and its replay, 2 replays) and ``time_steps``
+    (10 x 3) with the launch counters set to 0 just before; the same 5
+    steps through the eager path from the same init (losses within
+    LOSS_RTOL); 3 replays with no host sync; a profiler window of 2
+    replayed steps (the top device operations, the busy share of an
+    unprofiled step, and with ``flash`` each flash kernel's launches,
+    which must equal the counters' and MOE_FLASH_PER_STEP).  The loss must
+    be finite and fall."""
+    from gpuschedule_tpu_torch.parallel import ShardedTrainer
+    from gpuschedule_tpu_torch.profiler import time_steps
+
+    trainer = ShardedTrainer(model, batch_size=batch, flash_attn=flash,
+                             **({} if seq is None else {"seq_len": seq}))
+    state = trainer.init(seed=0)
+    eager_state = trainer.init(seed=0)
+    data = trainer.make_batch(seed=0)
+    torch.cuda.synchronize()
+    fa.reset_launches()                           # this cell's path starts here
+    losses = []
+    for _ in range(5):
+        state, loss = trainer.step(state, data)
+        losses.append(loss.item())
+    step_s, state = time_steps(trainer.step, state, data, iters=10, repeats=3)
+    launches = dict(fa.LAUNCHES)                  # ... and ends here
+    n_steps = 5 + 10 * 3
+    eager = []
+    for _ in range(5):
+        eager_state, loss = trainer._eager_step(eager_state, data)
+        eager.append(loss.item())
+    del eager_state
+    capture_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, eager))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            state, loss = trainer.step(state, data)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    before = dict(fa.LAUNCHES)
+    names = [KERNELS[name][0] for name in KERNELS] if flash else []
+    prof = profile_steps(torch, trainer, state, data, kernels=names)
+    check("device_ms_per_step" in prof, f"{model} step profile: {prof}")
+    prof["busy_share_of_step"] = prof["device_ms_per_step"] / (step_s * 1e3)
+    units = batch if trainer.is_image else batch * seq
+    flops = trainer.cfg.flops_per_token() * units / step_s
+    cell = {
+        "model": model, "batch": batch, "seq": None if trainer.is_image else seq,
+        "flash": flash, "step_ms": step_s * 1e3,
+        ("samples_per_s" if trainer.is_image else "tokens_per_s"): units / step_s,
+        "mfu": flops / peaks["bf16_flops"], "losses": losses, "eager_losses": eager,
+        "captured_vs_eager_loss_rel": capture_rel, "steps": n_steps, "launches": launches,
+        "profile": prof,
+    }
+    log(f"zoo {model}{' flash' if flash else ''} b{batch}"
+        f"{'' if trainer.is_image else f' S{seq}'}: {step_s * 1e3:.3f} ms/step, "
+        f"{units / step_s:.1f} {'samples' if trainer.is_image else 'tokens'}/s, MFU "
+        f"{cell['mfu']:.4f} (6N or per-sample FLOPs), device busy "
+        f"{prof['busy_share_of_step']:.3f} of an unprofiled step; losses {losses} vs eager "
+        f"{eager} (max rel {capture_rel:.2e}); top: "
+        + "; ".join(f"{o['kernel'][:60]} {o['ms_per_step']:.3f} ms" for o in prof["top"][:5]))
+    check(all(math.isfinite(x) for x in losses), f"{model}: non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"{model}: the loss did not fall: {losses}")
+    check(capture_rel < LOSS_RTOL, f"{model}: the captured step disagrees with the eager step")
+    if flash:
+        window = {name: (fa.LAUNCHES[name] - before[name]) / prof["steps"] for name in KERNELS}
+        seen = {name: prof["launches_per_step"][KERNELS[name][0]] for name in KERNELS}
+        log(f"launches a replayed {model} flash step: counters {window}, profiler {seen}")
+        check(seen == window == MOE_FLASH_PER_STEP,
+              f"{model} flash: the profiler's kernels {seen}, the counters' {window}, "
+              f"expected {MOE_FLASH_PER_STEP}")
+        check(all(launches[name] > 0 for name in KERNELS),
+              f"{model} flash: a kernel never launched on its path: {launches}")
+    elif not trainer.is_image and trainer.cfg.n_experts:
+        cell["dispatch_combine"] = moe_einsum_ms(torch, state, data, ms)
+        cell["dispatch_combine"]["share_of_step"] = (
+            cell["dispatch_combine"]["einsums_fwd_bwd_ms"] * trainer.cfg.n_layers
+            / (step_s * 1e3))
+        log(f"{model} dispatch/combine einsums, forward and backward, alone: "
+            f"{json.dumps(cell['dispatch_combine'])}")
+    del state, trainer, data
+    torch.cuda.empty_cache()
+    return cell
+
+
+def zoo_profile(torch, reference) -> dict:
+    """Phase 12: ``profile_model`` for each of ZOO_PROFILE at the bench's
+    batch into a fresh ``CurveCache``: its entry must have the keys, the
+    ``source`` and the points (ks and their form) of phase 9's
+    (``reference``), and finite non-negative theta."""
+    from gpuschedule_tpu_torch.profiler import CurveCache, profile_model
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "curves.json")
+        for model in ZOO_PROFILE:
+            t0 = time.perf_counter()
+            seq = {m: s for m, _, s in ZOO_CELLS}[model]
+            curve = profile_model(model, batch_size=16, ks=PROFILE_KS, cache=CurveCache(path),
+                                  **({} if seq is None else {"seq_len": seq}))
+            with open(path) as f:
+                entry = json.load(f)[model]
+            check(sorted(entry) == reference["entry_keys"]
+                  and entry["source"] == reference["source"]
+                  and sorted(entry["points"]) == sorted(reference["points"])
+                  and all(isinstance(v, float) for v in entry["points"].values()),
+                  f"{model}: the curve entry is not in phase 9's form: {entry}")
+            check(all(math.isfinite(t) and t >= 0 for t in curve.theta),
+                  f"{model}: theta is not finite and non-negative: {curve.theta}")
+            out[model] = {"theta": list(curve.theta), "k1_ms": entry["points"]["1"] * 1e3,
+                          "profile_s": time.perf_counter() - t0}
+    log(f"zoo profile: {json.dumps(out)}")
+    return out
+
+
+def zoo_phase(torch, fa, ms, smi, peaks, reference) -> dict:
+    """Phase 12: the MoE (top-1 and top-2) and ResNet families at full
+    width on the bench's batch (ZOO_CELLS), the MoE under the flash op
+    (K1-K3's counters equal the profiler's; its first loss within
+    LOSS_RTOL of the dense-attention MoE's from the same parameters; K1-K3
+    against their plain versions at the attention shape that step gives
+    them, within phase 3's bounds), their curves (``zoo_profile``) and the
+    bench's dense cell on resnet-mid, which must report samples/s."""
+    from gpuschedule_tpu_torch import bench
+    from gpuschedule_tpu_torch.models import MODEL_CONFIGS
+
+    t0 = time.perf_counter()
+    cells = {m: zoo_cell(torch, fa, ms, m, b, s, peaks) for m, b, s in ZOO_CELLS}
+    moe, batch, seq = ZOO_CELLS[0]
+    flash = zoo_cell(torch, fa, ms, moe, batch, seq, peaks, flash=True)
+    first_rel = abs(flash["losses"][0] - cells[moe]["losses"][0]) / abs(cells[moe]["losses"][0])
+    log(f"{moe} first loss, flash {flash['losses'][0]:.6f} vs dense attention "
+        f"{cells[moe]['losses'][0]:.6f} (rel {first_rel:.2e}, bound {LOSS_RTOL})")
+    check(first_rel < LOSS_RTOL, f"{moe}: the flash and dense-attention losses disagree")
+    flash["first_loss_rel_to_dense"] = first_rel
+    cfg = MODEL_CONFIGS[moe]
+    shape = (batch, seq, cfg.n_heads, cfg.d_model // cfg.n_heads)
+    flash["parity_shape"] = shape
+    flash["parity"] = kernel_parity(torch, fa, torch.device("cuda"), shape, torch.bfloat16,
+                                    True, 600)
+    curves = zoo_profile(torch, reference)
+    line = bench.child_main("resnet-mid")
+    check(line["unit"] == "samples/s" and line["value"] > 0 and "mfu" in line,
+          f"the bench's resnet-mid line: {line}")
+    torch.cuda.empty_cache()
+    return {"card": smi, "cells": cells, "moe_flash": flash, "profile": curves,
+            "bench_resnet_mid": line, "phase_s": time.perf_counter() - t0}
+
+
 def run() -> dict:
     import torch
 
@@ -1253,6 +1463,12 @@ def run() -> dict:
     print(json.dumps({"ring": ring}))
 
     # --------------------------------------------------------------- 12 --
+    zoo = zoo_phase(torch, fa, ms, smi, peaks, profile)
+    for name, e in zoo["moe_flash"]["parity"]["abs"].items():
+        errs[name] = max(errs[name], e)
+    print(json.dumps({"zoo": zoo}))
+
+    # --------------------------------------------------------------- 13 --
     train = {
         "card": smi, "build_s": build_s,
         "flash": {"model": "transformer-long", "batch": 2, "seq": 4096,
@@ -1277,6 +1493,7 @@ def run() -> dict:
          "ms": times[name][0], "plain_ms": times[name][1],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
          "library_ms": library[name], "launches_bench": bench_launches[name],
+         "launches_moe_flash": zoo["moe_flash"]["launches"][name],
          "longctx": longctx["kernels"][name]}
         for name, (cname, f32_name, replaces) in KERNELS.items()
     ] + [

@@ -1,13 +1,14 @@
 """gpuschedule_tpu_torch — the PyTorch/CUDA port of gpuschedule_tpu's device layer.
 
 The unit of measured work is the same as in the JAX package: one optimizer
-step of a ``TransformerLM``.  This package runs it on one NVIDIA H100, with
+step of a zoo model (a ``TransformerLM``, dense or MoE, or a ``ResNet``).
+This package runs it on one NVIDIA H100, with
 hand-written CUDA kernels (``ops/csrc/``) in place of the Pallas
 flash-attention kernels.  It imports ``torch`` only: nothing of JAX and
 nothing of ``gpuschedule_tpu``, of which it keeps its own copies.
 
 Layering:
-    models/     model configs (own copy) and the transformer LM modules
+    models/     model configs (own copy), the transformer LM and the ResNet
     ops/        dense oracle, flash attention: CUDA kernels + plain versions
     parallel/   mesh, sp rings (dense and flash), optimizer and the train step
     data/       synthetic token batches (own copy, numpy)

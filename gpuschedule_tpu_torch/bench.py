@@ -126,7 +126,9 @@ def child_main(model: str, *, device=None, batch_size: int = BATCH, seq_len: int
                warmup: int = WARMUP, iters: int = ITERS, repeats: int = 3) -> dict:
     """The dense cell: ``model``'s train step at ``batch_size`` × ``seq_len``
     after ``warmup`` steps, median of ``repeats`` blocks of ``iters`` steps.
-    Prints its line and returns it."""
+    An image model's rate is samples/s and its MFU counts per-sample FLOPs
+    (``CnnConfig.flops_per_token``), as in the JAX bench.  Prints its line
+    and returns it."""
     from gpuschedule_tpu_torch.parallel import ShardedTrainer
 
     _stage("setup")
@@ -134,7 +136,12 @@ def child_main(model: str, *, device=None, batch_size: int = BATCH, seq_len: int
     dev = trainer.device
     name, watts, card = _card(dev)
     step_s, _ = _timed_steps(trainer, warmup=warmup, iters=iters, repeats=repeats)
-    units = batch_size * seq_len
+    # flops_per_token() is per token for LMs, per sample for CNN configs
+    if trainer.is_image:
+        size = trainer.cfg.image_size
+        units, unit_name, shape = batch_size, "samples", f"b{batch_size}x{size}x{size}"
+    else:
+        units, unit_name, shape = batch_size * seq_len, "tokens", f"b{batch_size}xs{seq_len}"
     tokens_per_s = units / step_s
     achieved = trainer.cfg.flops_per_token() * units / step_s
     mfu = _mfu(achieved, card)
@@ -145,10 +152,10 @@ def child_main(model: str, *, device=None, batch_size: int = BATCH, seq_len: int
         tail = f"backend={dev.type} ({name}); MFU n/a off a card in CARDS"
         vsb = 0.0
     line = {
-        "metric": f"{model} train-step tokens/s (b{batch_size}xs{seq_len}, 1 device, "
+        "metric": f"{model} train-step {unit_name}/s ({shape}, 1 device, "
                   f"median of {repeats}x{iters}-step blocks; {tail})",
         "value": round(tokens_per_s, 1),
-        "unit": "tokens/s",
+        "unit": f"{unit_name}/s",
         "vs_baseline": vsb,
         "backend": dev.type,
         "device": name,

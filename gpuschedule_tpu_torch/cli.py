@@ -12,7 +12,9 @@ Counterparts of the JAX package's subcommands:
   one a device, and rank 0 prints the line.  Without a launcher it runs on
   one device.  ``--tp`` above 1, ``--data``, ``--ckpt`` and ``--restore``
   are not ported yet (ROADMAP.md), so the last two keys are null.
-- ``profile`` measures each ``--model``'s step, fits its goodput curve into
+  It trains the dense and MoE LMs; a CNN exits with the JAX CLI's
+  message (image models are profile-only there too).
+- ``profile`` measures each ``--model``'s step (any zoo model), fits its goodput curve into
   the ``--curves`` JSON that the simulator's Optimus policy reads
   (``gpuschedule_tpu run --policy optimus --curves``), and prints
   ``{"model", "theta"}`` per model, then ``{"model", "trace"}`` when
@@ -86,6 +88,11 @@ def _train(args) -> int:
         )
     except (ValueError, NotImplementedError, RuntimeError) as e:
         raise SystemExit(str(e))
+    if trainer.is_image:
+        raise SystemExit(
+            f"{args.model!r} is a CNN config; `train` feeds LM token "
+            "batches (image models are profile-only for now)"
+        )
     state = trainer.init(seed=args.seed)
     batches = synthetic_lm_batches(
         batch_size=trainer.batch_size, seq_len=args.seq_len,

@@ -1,37 +1,26 @@
 """Flax parameter trees -> this package's ``state_dict``.
 
 The port's modules keep flax's parameter names and shapes, so the mapping
-is by path alone: ``block{i}/attn/query/kernel`` becomes
-``blocks.{i}.attn.query.kernel``, ``embed/embedding`` becomes
-``embed.embedding``, and ``pos_embed``, ``ln_f`` and ``lm_head`` keep their
-names.  Arrays arrive as numpy (``jax.device_get`` of the tree); nothing
-here imports JAX.
+is by path alone: a ``state_dict`` name is the flax path joined by dots,
+but for the LM's blocks, which flax names ``block{i}`` and the port keeps
+in ``blocks.{i}`` (``block0/attn/query/kernel`` is
+``blocks.0.attn.query.kernel``).  The names to fill are the state_dict of
+the config's own module, built on the meta device, so the mapping follows
+the modules (dense or MoE MLP, CNN) with no list of its own.  Arrays
+arrive as numpy (``jax.device_get`` of the tree); nothing here imports JAX.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Dict, Mapping
 
 import numpy as np
 import torch
 
-from gpuschedule_tpu_torch.models.config import ModelConfig
-
-_BLOCK_LEAVES = (
-    ("attn", "query", "kernel"), ("attn", "query", "bias"),
-    ("attn", "key", "kernel"), ("attn", "key", "bias"),
-    ("attn", "value", "kernel"), ("attn", "value", "bias"),
-    ("attn", "out", "kernel"), ("attn", "out", "bias"),
-    ("up", "kernel"), ("up", "bias"),
-    ("down", "kernel"), ("down", "bias"),
-    ("ln1", "scale"), ("ln1", "bias"),
-    ("ln2", "scale"), ("ln2", "bias"),
-)
-_TOP_LEAVES = (
-    ("embed", "embedding"), ("pos_embed",),
-    ("ln_f", "scale"), ("ln_f", "bias"),
-    ("lm_head", "kernel"), ("lm_head", "bias"),
-)
+from gpuschedule_tpu_torch.models.cnn import ResNet
+from gpuschedule_tpu_torch.models.config import CnnConfig, ModelConfig
+from gpuschedule_tpu_torch.models.transformer import TransformerLM
 
 
 def _get(tree: Mapping, path) -> np.ndarray:
@@ -41,17 +30,20 @@ def _get(tree: Mapping, path) -> np.ndarray:
     return np.asarray(node)
 
 
-def params_from_jax(params: Mapping, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
-    """The ``TransformerLM`` state_dict holding the flax LM parameters
-    ``params`` (the ``"params"`` collection, or the dict that wraps it).
-    Raises ``KeyError`` naming the flax path of any missing leaf."""
+def params_from_jax(params: Mapping, cfg: "ModelConfig | CnnConfig") -> Dict[str, torch.Tensor]:
+    """The state_dict of ``cfg``'s module (a ``TransformerLM``, dense or
+    MoE, or a ``ResNet``) holding the flax parameters ``params`` (the
+    ``"params"`` collection, or the dict that wraps it).  Raises
+    ``KeyError`` naming the flax path of any missing leaf.  ``cfg`` may be
+    the JAX package's config of the same model: a config with ``channels``
+    is a CNN's."""
     if "params" in params:
         params = params["params"]
+    with torch.device("meta"):
+        module = ResNet(cfg) if hasattr(cfg, "channels") else TransformerLM(cfg)
     out: Dict[str, torch.Tensor] = {}
-    paths = [((f"block{i}", *leaf), f"blocks.{i}." + ".".join(leaf))
-             for i in range(cfg.n_layers) for leaf in _BLOCK_LEAVES]
-    paths += [(leaf, ".".join(leaf)) for leaf in _TOP_LEAVES]
-    for flax_path, name in paths:
+    for name in module.state_dict():
+        flax_path = re.sub(r"^blocks\.(\d+)\.", r"block\1.", name).split(".")
         try:
             arr = _get(params, flax_path)
         except KeyError:

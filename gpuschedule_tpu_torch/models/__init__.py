@@ -1,4 +1,5 @@
-"""Model zoo: configs (own copy) and the transformer LM modules."""
+"""Model zoo: configs (own copy), the transformer LM (dense or MoE MLP) and
+the ResNet classifier (:mod:`.cnn`)."""
 
 from gpuschedule_tpu_torch.models.config import (
     FALLBACK_MODEL,

@@ -13,6 +13,12 @@ with named shardings; this one runs one rank of a :class:`Mesh` a process.
   step's mean and psum.
 - **tp** and **pp** are not ported (``NotImplementedError``, ROADMAP.md).
 
+The three model families of the zoo train here: the dense LM; the MoE LM,
+whose blocks' aux losses are charged at ``moe_aux_weight`` (on one rank
+only: the JAX module routes over the global batch); and the CNN, whose
+batch is an ``(images, labels)`` pair and whose loss is the softmax
+cross-entropy over integer labels.
+
 On one rank and on the card the step is one captured program, as the JAX
 step is one ``jit`` program: forward, backward, clip and adamw replay as
 one CUDA graph (:meth:`ShardedTrainer.step`).  On the CPU, and on more
@@ -29,7 +35,7 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 from functools import partial
-from typing import Callable, Dict, Iterable, Optional, Tuple
+from typing import Callable, Dict, Iterable, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -37,7 +43,8 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from gpuschedule_tpu_torch.data.loader import synthetic_lm_batches
-from gpuschedule_tpu_torch.models.transformer import build_model, lm_config
+from gpuschedule_tpu_torch.models.config import CnnConfig
+from gpuschedule_tpu_torch.models.transformer import build_model, model_config
 from gpuschedule_tpu_torch.ops import launches
 from gpuschedule_tpu_torch.parallel.mesh import Mesh, make_mesh, world_size
 
@@ -157,13 +164,26 @@ class TrainState:
     optimizer: Optimizer
 
 
+Batch = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
+
+
+def _tensors(batch: Batch) -> Tuple[torch.Tensor, ...]:
+    """A token batch, or an (images, labels) pair, as a tuple of tensors."""
+    return tuple(batch) if isinstance(batch, (tuple, list)) else (batch,)
+
+
+def _clone(batch: Batch) -> Batch:
+    """A copy of ``batch`` in its own form: a tensor, or a tuple of them."""
+    return tuple(t.clone() for t in batch) if isinstance(batch, (tuple, list)) else batch.clone()
+
+
 @dataclass
 class _Captured:
-    """One captured step: the graph, its static token buffer and loss, and
+    """One captured step: the graph, its static batch buffers and loss, and
     the launches of our kernels that its capture recorded."""
 
     graph: "torch.cuda.CUDAGraph"
-    tokens: torch.Tensor
+    batch: Batch
     loss: torch.Tensor
     recorded: launches.Recorded
 
@@ -177,7 +197,9 @@ class ShardedTrainer:
     ``device``, the card unless ``device="cpu"``).  ``flash_attn`` puts the
     CUDA flash kernels (:func:`~gpuschedule_tpu_torch.ops.flash_attention`)
     in every block; ``ring_attn`` the sp ring, the two together the
-    ring-flash composition.  ``batch_size`` and ``seq_len`` are global."""
+    ring-flash composition.  ``batch_size`` and ``seq_len`` are global
+    (``seq_len`` means nothing to a CNN).  ``moe_aux_weight`` weighs the
+    MoE blocks' aux losses in the loss, as in the JAX trainer."""
 
     def __init__(
         self,
@@ -190,6 +212,7 @@ class ShardedTrainer:
         seq_shard: bool = False,
         ring_attn: bool = False,
         flash_attn: bool = False,
+        moe_aux_weight: float = 1e-2,
         warmup_steps: int = 0,
         decay_steps: Optional[int] = None,
         grad_clip: Optional[float] = None,
@@ -229,12 +252,22 @@ class ShardedTrainer:
         self.device = mesh.device
         self.model_name = model_name
         self.attn_fn = attn_fn
-        self.cfg = lm_config(model_name)
-        if seq_len > self.cfg.max_seq:
+        self.moe_aux_weight = moe_aux_weight
+        self.cfg = model_config(model_name, attn_fn)
+        self.is_image = isinstance(self.cfg, CnnConfig)
+        if not self.is_image and seq_len > self.cfg.max_seq:
             raise ValueError(f"seq_len {seq_len} > model max_seq {self.cfg.max_seq}")
         dp, sp = mesh.shape["dp"], mesh.shape["sp"]
         if batch_size % dp != 0:
             raise ValueError(f"batch {batch_size} not divisible by dp={dp}")
+        if seq_shard and self.is_image:
+            raise ValueError("seq_shard applies to LM sequences, not images")
+        if not self.is_image and self.cfg.n_experts and world_size() > 1:
+            raise NotImplementedError(
+                f"{model_name!r} is an MoE config: over more than one rank it waits for tp/ep "
+                "(ROADMAP.md, Queue 1): the JAX module routes and sizes capacity over the "
+                "global batch, which a rank-local router does not"
+            )
         if seq_shard and seq_len % sp != 0:
             raise ValueError(f"seq {seq_len} not divisible by sp={sp}")
         if seq_shard and sp > 1 and not ring_attn:
@@ -276,23 +309,37 @@ class ShardedTrainer:
         opt = make_optimizer(model.parameters(), self.learning_rate, **self.opt_kwargs)
         return TrainState(model, opt)
 
-    def make_batch(self, seed: int = 0) -> torch.Tensor:
-        """This rank's share of a (batch, seq) int64 token batch, on the
-        device: the global batch is drawn by :func:`synthetic_lm_batches`,
-        the same on every rank, then sliced (:meth:`to_device`)."""
+    def make_batch(self, seed: int = 0) -> Batch:
+        """This rank's share of a random global batch, on the device (the
+        same global batch on every rank, then sliced by :meth:`to_device`):
+        a (batch, seq) int64 token batch drawn by
+        :func:`synthetic_lm_batches`, or for a CNN an ``(images, labels)``
+        pair, ``(batch, size, size, 3)`` f32 normals and int64 labels drawn
+        from a ``torch.Generator`` seeded with ``seed`` on the CPU."""
+        if self.is_image:
+            gen = torch.Generator().manual_seed(seed)
+            s = self.cfg.image_size
+            images = torch.randn((self.batch_size, s, s, 3), generator=gen)
+            labels = torch.randint(0, self.cfg.num_classes, (self.batch_size,), generator=gen)
+            return self.to_device((images, labels))
         tokens = next(synthetic_lm_batches(
             batch_size=self.batch_size, seq_len=self.seq_len,
             vocab=self.cfg.vocab, num_batches=1, seed=seed,
         ))
         return self.to_device(tokens)
 
-    def to_device(self, tokens: np.ndarray) -> torch.Tensor:
-        """This rank's share of a global (batch, seq) token batch, on the
-        device: its dp rows and, with the sequence split, its sp chunk and
-        one token past it, the label of the chunk's last position (the last
-        chunk has none past it).  On one rank, the whole batch."""
-        t = torch.from_numpy(np.asarray(tokens)).long()
-        t = t[self.row0:self.row0 + self.rows, self.seq_offset:self.seq_offset + self.local_seq + 1]
+    def to_device(self, batch) -> Batch:
+        """This rank's share of a global batch, on the device.  Tokens
+        (batch, seq): its dp rows and, with the sequence split, its sp chunk
+        and one token past it, the label of the chunk's last position (the
+        last chunk has none past it).  An ``(images, labels)`` pair: its dp
+        rows of each, as f32 and int64.  On one rank, the whole batch."""
+        rows = slice(self.row0, self.row0 + self.rows)
+        if self.is_image:
+            images, labels = (torch.as_tensor(np.asarray(x)) for x in batch)
+            return (images[rows].float().to(self.device), labels[rows].long().to(self.device))
+        t = torch.from_numpy(np.asarray(batch)).long()
+        t = t[rows, self.seq_offset:self.seq_offset + self.local_seq + 1]
         return t.to(self.device)
 
     @staticmethod
@@ -307,25 +354,36 @@ class ShardedTrainer:
                                 labels.reshape(-1), reduction="sum")
         return total / (labels.numel() if count is None else count)
 
-    def _loss(self, model: torch.nn.Module, tokens: torch.Tensor) -> torch.Tensor:
+    def _loss(self, model: torch.nn.Module, batch: Batch) -> torch.Tensor:
         """This rank's share of the global mean loss on its share of the
         batch (:meth:`to_device`): its sum divided by the global count of
-        labels, times the replicas of each sum.  On one rank, the mean."""
-        chunk = tokens if self.last_chunk else tokens[:, :-1]
+        labels, times the replicas of each sum.  On one rank, the mean; an
+        MoE model adds ``moe_aux_weight`` times the sum of its blocks' aux
+        losses (one rank only)."""
+        if self.is_image:
+            images, labels = batch
+            count = labels.shape[0] * self.dp * self.replicas
+            return F.cross_entropy(model(images), labels, reduction="sum") / count
+        chunk = batch if self.last_chunk else batch[:, :-1]
         rows, n = chunk.shape
         count = rows * self.dp * (n * self.split - 1) * self.replicas
-        return self.loss(model(chunk, pos_offset=self.seq_offset), tokens, count)
+        logits, aux = model.forward_with_aux(chunk, pos_offset=self.seq_offset)
+        loss = self.loss(logits, batch, count)
+        if aux:
+            loss = loss + self.moe_aux_weight * sum(aux)
+        return loss
 
-    def step(self, state: TrainState, tokens: torch.Tensor) -> Tuple[TrainState, torch.Tensor]:
-        """One optimizer step; returns ``(state, loss)``.  The loss stays on
+    def step(self, state: TrainState, batch: Batch) -> Tuple[TrainState, torch.Tensor]:
+        """One optimizer step on ``batch`` (:meth:`make_batch`'s form);
+        returns ``(state, loss)``.  The loss stays on
         the device (no host sync): callers fence when they need a value.
 
         On the CPU the step runs eagerly.  On the card it is one CUDA graph,
         as the JAX step is one ``jit`` program: the first call for a state
-        and a batch shape and dtype runs eagerly on a side stream (it builds
-        the kernels and adamw's state), the second captures forward,
+        and a batch's shapes and dtypes runs eagerly on a side stream (it
+        builds the kernels and adamw's state), the second captures forward,
         backward, clip and adamw into a graph and replays it once, and every
-        later call copies the batch into the graph's static buffer and
+        later call copies the batch into the graph's static buffers and
         replays.  Each call is one real optimizer step.  A new batch shape
         or dtype captures a new graph, as ``jit`` retraces; a new state
         drops the graphs of the old one.  A capture that fails raises.
@@ -333,30 +391,31 @@ class ShardedTrainer:
         On more than one rank the step runs eagerly (:meth:`_eager_step`):
         no capture of a step with collectives is checked yet."""
         if self.world > 1 or self.device.type != "cuda":
-            return self._eager_step(state, tokens)
+            return self._eager_step(state, batch)
         if state is not self._graph_state:
             self._graphs.clear()
             self._graph_state = state
-        key = (tuple(tokens.shape), tokens.dtype)
+        key = tuple((tuple(t.shape), t.dtype) for t in _tensors(batch))
         if key not in self._graphs:
             self._graphs[key] = None
-            return self._warm_up(state, tokens)
+            return self._warm_up(state, batch)
         captured = self._graphs[key]
         if captured is None:
-            captured = self._graphs[key] = self._capture(state, tokens)
-        captured.tokens.copy_(tokens)
+            captured = self._graphs[key] = self._capture(state, batch)
+        for static, t in zip(_tensors(captured.batch), _tensors(batch)):
+            static.copy_(t)
         captured.graph.replay()
         launches.replayed(captured.recorded)
         state.optimizer.schedule.step()
         return state, captured.loss.clone()
 
-    def _eager_step(self, state: TrainState, tokens: torch.Tensor) -> Tuple[TrainState, torch.Tensor]:
+    def _eager_step(self, state: TrainState, batch: Batch) -> Tuple[TrainState, torch.Tensor]:
         """The step as plain PyTorch calls, one launch at a time.  On more
         than one rank the gradients and the loss are summed over the world
         before the update (the JAX step's psum): every rank makes the same
         update and returns the global mean loss."""
         state.optimizer.zero_grad()
-        loss = self._loss(state.model, tokens)
+        loss = self._loss(state.model, batch)
         loss.backward()
         if self.world > 1:
             _all_reduce_grads(state.model)
@@ -366,21 +425,21 @@ class ShardedTrainer:
             dist.all_reduce(loss)
         return state, loss
 
-    def _warm_up(self, state: TrainState, tokens: torch.Tensor) -> Tuple[TrainState, torch.Tensor]:
+    def _warm_up(self, state: TrainState, batch: Batch) -> Tuple[TrainState, torch.Tensor]:
         """One eager step on a side stream, as PyTorch asks before a capture."""
         main = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(main)
         with torch.cuda.stream(side):
-            state, loss = self._eager_step(state, tokens)
+            state, loss = self._eager_step(state, batch)
         main.wait_stream(side)
         return state, loss
 
-    def _capture(self, state: TrainState, tokens: torch.Tensor) -> _Captured:
-        """Capture forward, backward, clip and adamw on ``tokens``' shape.
+    def _capture(self, state: TrainState, batch: Batch) -> _Captured:
+        """Capture forward, backward, clip and adamw on ``batch``'s shapes.
         Nothing runs while a graph is captured, so the launches the wrappers
         count meanwhile become the graph's own, counted on its replays."""
-        static = tokens.clone()
+        static = _clone(batch)
         state.optimizer.zero_grad()  # the grads are allocated in the graph's pool
         graph = torch.cuda.CUDAGraph()
         with launches.recording() as recorded, torch.cuda.graph(graph):

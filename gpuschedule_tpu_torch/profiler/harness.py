@@ -33,6 +33,9 @@ from gpuschedule_tpu_torch.profiler.ici import dp_gradient_bytes
 
 
 def _fence(x) -> None:
+    """Wait for the device of ``x``: a tensor, or a batch's tuple of them."""
+    if isinstance(x, (tuple, list)) and x:
+        x = x[0]
     if isinstance(x, torch.Tensor) and x.is_cuda:
         torch.cuda.synchronize(x.device)
 
@@ -40,7 +43,8 @@ def _fence(x) -> None:
 def time_steps(step_fn, state, tokens, *, iters: int, repeats: int = 3):
     """Median seconds/step over ``repeats`` blocks of ``iters`` chained steps.
 
-    ``step_fn(state, tokens) -> (state, loss)``.  Each block ends with a
+    ``step_fn(state, tokens) -> (state, loss)``; ``tokens`` is any batch
+    the step takes (an ``(images, labels)`` pair for a CNN).  Each block ends with a
     device synchronize.  Returns ``(seconds_per_step, final_state)``."""
     if iters < 1 or repeats < 1:
         raise ValueError(f"iters/repeats must be >= 1, got {iters}/{repeats}")
@@ -137,9 +141,10 @@ def measure_step_time(
     flash_attn: bool = False,
     device=None,
 ) -> float:
-    """Median seconds per optimizer step of ``model_name`` on one device
-    (``cuda`` unless ``device="cpu"``), after ``warmup`` steps: at least the
-    two that warm up and capture the step on the card."""
+    """Median seconds per optimizer step of ``model_name`` (any zoo family;
+    ``seq_len`` means nothing to a CNN) on one device (``cuda`` unless
+    ``device="cpu"``), after ``warmup`` steps: at least the two that warm
+    up and capture the step on the card."""
     trainer = ShardedTrainer(
         model_name, batch_size=batch_size, seq_len=seq_len,
         flash_attn=flash_attn, device=device,

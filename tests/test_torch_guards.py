@@ -11,7 +11,7 @@ import torch
 
 from gpuschedule_tpu_torch import resolve_device
 from gpuschedule_tpu_torch.cli import main
-from gpuschedule_tpu_torch.models import build_model
+from gpuschedule_tpu_torch.models import MODEL_CONFIGS, CnnConfig, build_model
 from gpuschedule_tpu_torch.parallel import ShardedTrainer
 from gpuschedule_tpu_torch.ops.overhead_probe import probe_copy
 from gpuschedule_tpu_torch.profiler import measure_step_time, profile_model
@@ -68,14 +68,16 @@ def test_bench_has_no_cpu_fallback(no_cuda, capsys):
 def test_scans_cover_the_bench_and_the_card_table():
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     assert {"gpuschedule_tpu_torch/bench.py", "gpuschedule_tpu_torch/cluster/cards.py",
-            "chip_smoke.py"} <= names
+            "gpuschedule_tpu_torch/models/cnn.py", "chip_smoke.py"} <= names
 
 
-def test_unported_options_raise(tmp_path):
+def test_unported_options_raise(tmp_path, monkeypatch):
     """tp and pp stay unported (dp and sp are: tests/test_torch_ring*.py,
-    where a real tp = 2 mesh makes the trainer raise too); the trainer's
-    ring and flash options raise the JAX trainer's errors, and a mesh must
-    span the launcher's world."""
+    where a real tp = 2 mesh makes the trainer raise too), and so does an
+    MoE model over more than one rank (it waits for tp/ep); the trainer's
+    ring and flash options raise the JAX trainer's errors, a CNN with an
+    attention core raises the JAX ``build_model``'s, and a mesh must span
+    the launcher's world."""
     with pytest.raises(SystemExit, match="ROADMAP"):
         main(["train", "--model", "transformer-tiny", "--tp", "2", "--device", "cpu"])
     for kw in ({"sp": 2}, {"tp": 2}, {"pp": 2}):
@@ -91,11 +93,30 @@ def test_unported_options_raise(tmp_path):
         ShardedTrainer("transformer-tiny", flash_attn=True, seq_shard=True, device="cpu")
     with pytest.raises(SystemExit, match="world of 1 ranks"):
         main(["train", "--model", "transformer-tiny", "--devices", "2", "--device", "cpu"])
-    for name in ("moe-tiny", "resnet-tiny"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(name)
+    from gpuschedule_tpu_torch.parallel import train
+
+    with monkeypatch.context() as m:
+        m.setattr(train, "world_size", lambda: 2)
+        for name in ("moe-tiny", "moe-top2-tiny"):
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                ShardedTrainer(name, device="cpu")
+    with pytest.raises(ValueError, match="attn_fn applies to transformer LMs, not CNNs"):
+        build_model("resnet-tiny", attn_fn=lambda q, k, v: q)
+    with pytest.raises(ValueError, match="attn_fn applies to transformer LMs, not CNNs"):
+        ShardedTrainer("resnet-tiny", flash_attn=True, device="cpu")
     with pytest.raises(ValueError, match="unknown model"):
         build_model("no-such-model")
+
+
+@pytest.mark.parametrize("name", sorted(MODEL_CONFIGS))
+def test_every_zoo_model_builds_and_takes_a_trainer(name):
+    """All 14 zoo names build (on the meta device: no memory) and take a
+    trainer on the CPU; the CNNs' batches are (images, labels) pairs."""
+    with torch.device("meta"):
+        model, cfg = build_model(name)
+    assert cfg is MODEL_CONFIGS[name] and sum(p.numel() for p in model.parameters()) > 0
+    tr = ShardedTrainer(name, batch_size=2, seq_len=16, device="cpu")
+    assert tr.is_image == isinstance(cfg, CnnConfig)
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -17,7 +17,12 @@ Each rank (``tests/torch_ring_worker.py``) checks:
    and each one's update close to the JAX trainer's (``UPDATE_RTOL``);
 3. the ``train`` CLI on the same group (``--sp 2 --ring-attn
    --flash-attn``): rank 0 prints the summary line, with the mesh's shape;
-4. a tp = 2 mesh makes the trainer raise (ROADMAP.md).
+4. a tp = 2 mesh makes the trainer raise (ROADMAP.md), and so does an MoE
+   model on the four ranks (its router waits for tp/ep);
+5. three ``resnet-tiny`` steps over dp = 2 (each rank's two rows of images
+   and labels; the sp ranks are replicas) from the JAX trainer's
+   parameters: the losses agree with the JAX trainer's on the same mesh
+   within 5e-3, and the parameters after them are the same on every rank.
 
 The JAX trainer's steps run in this process while the ranks run.
 """
@@ -73,6 +78,13 @@ def test_process_group_ring_and_trainer_on_four_gloo_ranks(tmp_path):
     data = {n: rng.standard_normal((4, 64, 2, 32)).astype(np.float32) for n in "qkvg"}
     data["tokens"] = batches
     data.update({f"p:{name}": t.numpy() for name, t in params.items()})
+    cnn = JaxTrainer("resnet-tiny", jax_make_mesh(dp=2, sp=2, devices=jax.devices()[:4]),
+                     batch_size=4, learning_rate=3e-3)
+    cnn_state = cnn.init(seed=0)
+    data["images"] = rng.standard_normal((3, 4, 32, 32, 3)).astype(np.float32)
+    data["labels"] = rng.integers(0, 100, size=(3, 4)).astype(np.int32)
+    data.update({f"cnn:{name}": t.numpy() for name, t in
+                 params_from_jax(jax.device_get(cnn_state[0]), cnn.cfg).items()})
     np.savez(tmp_path / "data.npz", **data)
 
     deadline = time.monotonic() + TIMEOUT_S
@@ -87,6 +99,10 @@ def test_process_group_ring_and_trainer_on_four_gloo_ranks(tmp_path):
             state, loss = jt.step(state, jnp.asarray(tokens))
             ref.append(float(loss))
         ref_params = params_from_jax(jax.device_get(state[0]), jt.cfg)
+        cnn_ref = []
+        for images, labels in zip(data["images"], data["labels"]):
+            cnn_state, loss = cnn.step(cnn_state, (jnp.asarray(images), jnp.asarray(labels)))
+            cnn_ref.append(float(loss))
     finally:
         _wait(ctx, deadline)
 
@@ -114,6 +130,12 @@ def test_process_group_ring_and_trainer_on_four_gloo_ranks(tmp_path):
         np.testing.assert_allclose(f["losses"], ref, atol=5e-3, rtol=0)
         assert f["cli_rc"] == 0
         assert f["tp_error"] is not None and "ROADMAP" in f["tp_error"]
+        assert f["moe_error"] is not None and "ROADMAP" in f["moe_error"]
+        assert f["cnn_rows"] == [[2, 32, 32, 3], [2]]
+        np.testing.assert_allclose(f["cnn_losses"], cnn_ref, atol=5e-3, rtol=0)
+    for name in (n for n in ranks[0].files if n.startswith("cnn:")):
+        for other in ranks[1:]:
+            np.testing.assert_array_equal(other[name], ranks[0][name], err_msg=name)
     lines = [f["cli_out"].strip() for f in found]
     rank0 = next(line for f, line in zip(found, lines) if f["coords"] == [0, 0])
     assert sum(bool(line) for line in lines) == 1

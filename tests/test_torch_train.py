@@ -44,6 +44,7 @@ def test_config_copy_matches_jax_zoo():
         assert dataclasses.asdict(cfg) == dataclasses.asdict(ref)
         assert cfg.param_count == ref.param_count
         assert cfg.flops_per_token() == ref.flops_per_token()
+        assert getattr(cfg, "active_param_count", None) == getattr(ref, "active_param_count", None)
 
 
 def test_token_stream_copy_matches_jax():

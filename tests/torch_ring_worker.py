@@ -3,8 +3,8 @@
 Imports nothing of JAX (each of the four processes would pay for it).  The
 ranks meet through a ``FileStore`` under the test's ``tmp_path``, so
 parallel test workers cannot collide on a port.  Each rank writes what it
-found to ``rank<r>.json`` and its trainer's parameters after the steps to
-``rank<r>.npz`` in the output directory.
+found to ``rank<r>.json`` and its trainers' parameters after the steps to
+``rank<r>.npz`` in the output directory (the CNN's under ``cnn:``).
 """
 
 from __future__ import annotations
@@ -92,10 +92,28 @@ def _checks(data) -> tuple:
                                     "--ring-attn", "--flash-attn", "--device", "cpu"])
     found["cli_out"] = buf.getvalue()
 
-    # 4. tensor parallelism stays unported on a real tp = 2 mesh
-    try:
-        ShardedTrainer("transformer-tiny", make_mesh(dp=2, tp=2, device="cpu"))
-        found["tp_error"] = None
-    except NotImplementedError as e:
-        found["tp_error"] = str(e)
+    # 4. tensor parallelism stays unported on a real tp = 2 mesh, and so
+    # does an MoE model over more than one rank
+    for key, name, kw in (("tp_error", "transformer-tiny", {"dp": 2, "tp": 2}),
+                          ("moe_error", "moe-tiny", {"dp": 2, "sp": 2})):
+        try:
+            ShardedTrainer(name, make_mesh(device="cpu", **kw))
+            found[key] = None
+        except NotImplementedError as e:
+            found[key] = str(e)
+
+    # 5. the CNN over dp = 2 (the sp ranks hold replicas): three steps from
+    # the JAX trainer's parameters on the same (images, labels) batches
+    cnn = ShardedTrainer("resnet-tiny", mesh, batch_size=4, learning_rate=3e-3)
+    cstate = cnn.init(seed=0)
+    cstate.model.load_state_dict({name[4:]: torch.from_numpy(data[name])
+                                  for name in data.files if name.startswith("cnn:")})
+    found["cnn_losses"] = []
+    for images, labels in zip(data["images"], data["labels"]):
+        cstate, loss = cnn.step(cstate, cnn.to_device((images, labels)))
+        found["cnn_losses"].append(float(loss))
+    found["cnn_rows"] = [list(t.shape) for t in cnn.to_device((data["images"][0],
+                                                                data["labels"][0]))]
+    params.update({f"cnn:{name}": p.detach().numpy()
+                   for name, p in cstate.model.named_parameters()})
     return found, params
