@@ -114,9 +114,33 @@ Phases, each fatal on failure (exit code 1, no result line):
    resnet-mid and transformer-moe, whose curve entries must have phase 9's
    form; ``bench.child_main("resnet-mid")``, which must report samples/s;
    a ``{"zoo": ...}`` line;
-13. a ``{"train": ...}`` line, a ``{"kernels": [...]}`` line (the five
+13. data and checkpoints (``ckpt_phase``): (i) a token file written by the
+   port's ``TokenFileDataset.write``, uint16 tokens of transformer-long's
+   vocab, DATA_BATCHES batches of 2 x 4096; (ii) phase 5's trainer fed
+   from it through ``prefetch_to_device``: 6 steps straight, then from the
+   same init 3 steps, ``save_state``, ``restore_state`` into a fresh
+   trainer and 3 more with the stream resumed at 3 (the phase's main path:
+   the counts set to 0 just before the straight run): the resumed losses
+   equal steps 4-6 within LOSS_RTOL (the parameters' relative L2 gap
+   after step 6 printed), the restored trainer's replays launch K1 8, K2 4
+   and K3 4 a step by the counters and by a profiler window, 3
+   prefetch-fed replays make no host sync, the device is busy at least
+   BUSY_MIN of the fed step, whose median is within STEP_RTOL of phase
+   5's; (iii) the ``train`` CLI with ``--data --ckpt``, then ``--restore``
+   (and a ``--seed 1`` restore under ``GSTPU_TRACE=1`` beside it): both
+   exit 0, ``checkpoint`` and the sidecar's keys, ``resumed_at_step`` 3,
+   the resumed first and last losses (ii)'s steps 4 and 6 within
+   LOSS_RTOL, the drift warning, a spans line with a ``train.step`` a
+   step; (iv) ``save_state`` and ``restore_state`` of transformer-large's
+   state (b16 x S512, 2 steps) into a temporary directory on the TMPDIR
+   filesystem and one in the checkout's (each's filesystem and free space
+   logged, removed after): seconds, bytes, GB/s, each restored trainer's
+   next loss within LOSS_RTOL of the unrestored one's, the memory given
+   back; a ``{"ckpt": ...}`` line;
+14. a ``{"train": ...}`` line, a ``{"kernels": [...]}`` line (the five
    kernels and the three f32 forms; K1-K3 with their launches on the MoE +
-   flash path too), and last the ``{"ok": true, "device": {...}}`` line.
+   flash path and phase 13's path too), and last the ``{"ok": true,
+   "device": {...}}`` line.
 
 Exits non-zero when CUDA is unavailable or the port cannot be imported.
 """
@@ -199,6 +223,13 @@ ZOO_CELLS = (("transformer-moe", 16, 512), ("transformer-moe-top2", 16, 512),
              ("resnet-mid", 16, None))
 ZOO_PROFILE = ("resnet-mid", "transformer-moe")
 MOE_FLASH_PER_STEP = {"flash_fwd": 4, "flash_bwd_dq": 4, "flash_bwd_dkdv": 4}  # 4 layers
+# phase 13: data and checkpoints
+FLASH_PER_STEP = {"flash_fwd": 8, "flash_bwd_dq": 4, "flash_bwd_dkdv": 4}  # 4 layers, remat
+RESUME_CELL = ("transformer-long", 2, 4096)  # phase 5's model, batch and S
+DATA_BATCHES = 20      # batches of RESUME_CELL's batch x S tokens in the phase's token file
+STEP_RTOL = 0.03       # the prefetch-fed step's median vs phase 5's step
+CKPT_MODEL = ("transformer-large", 16, 512)  # the flagship's state for the cost
+CKPT_BYTES_PER_PARAM = 12  # f32 parameters and adamw's two f32 moments
 ROOT = Path(__file__).resolve().parent
 
 
@@ -319,8 +350,9 @@ def hmma_counts(lib_path: str, tool: str) -> dict:
     return counts
 
 
-def profile_steps(torch, trainer, state, tokens, steps: int = 2, kernels=()) -> dict:
-    """Device time by kernel over ``steps`` train steps (``torch.profiler``):
+def profile_steps(torch, trainer, state, tokens, steps: int = 2, kernels=(), feed=None) -> dict:
+    """Device time by kernel over ``steps`` train steps (``torch.profiler``),
+    each on ``tokens`` or, given ``feed``, on the feed's next batch:
     per-step ms of the top kernels, their sum, the busy share of the
     profiled window's wall time (the profiler's own overhead lands in the
     idle share; the caller adds the share of an unprofiled step), and the
@@ -334,7 +366,7 @@ def profile_steps(torch, trainer, state, tokens, steps: int = 2, kernels=()) -> 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            state, _ = trainer.step(state, tokens)
+            state, _ = trainer.step(state, tokens if feed is None else next(feed))
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name: dict = {}
@@ -1135,6 +1167,331 @@ def zoo_phase(torch, fa, ms, smi, peaks, reference) -> dict:
             "bench_resnet_mid": line, "phase_s": time.perf_counter() - t0}
 
 
+def _rel_l2(torch, a, b) -> float:
+    """Relative L2 distance of two states' parameters, over all of them."""
+    num = den = 0.0
+    for (_, x), (_, y) in zip(a.model.named_parameters(), b.model.named_parameters()):
+        num += (x.detach().double() - y.detach().double()).pow(2).sum().item()
+        den += y.detach().double().pow(2).sum().item()
+    return math.sqrt(num / den)
+
+
+def _fed(ds, trainer, start, n, epoch=0):
+    """``n`` batches of ``ds`` from ``start`` (then on through later
+    epochs), cut, pinned and copied by ``prefetch_to_device``."""
+    import itertools
+
+    from gpuschedule_tpu_torch.data import prefetch_to_device
+
+    def stream():
+        e, first = epoch, start
+        while True:
+            yield from ds.batches(epoch=e, start=first)
+            e, first = e + 1, 0
+    return prefetch_to_device(itertools.islice(stream(), n), size=2,
+                              sharding=trainer.batch_sharding)
+
+
+def resume_in_process(torch, fa, data_path, phase5_s, tmp) -> dict:
+    """Phase 13 (ii): RESUME_CELL (transformer-long b2 x S4096) flash fed from the token
+    file through ``prefetch_to_device``: 6 steps straight through, then
+    from the same init 3 steps, ``save_state``, ``restore_state`` into a
+    fresh trainer and 3 more with the stream resumed at 3 (its main path:
+    the counts set to 0 just before the straight run, read after the
+    resumed one).  The resumed losses must equal steps 4-6 within
+    LOSS_RTOL; the restored trainer's replays must launch FLASH_PER_STEP by
+    the counters and by a profiler window, make no host sync in 3
+    prefetch-fed replays, keep the device busy at least BUSY_MIN of the
+    fed step, whose median must be within STEP_RTOL of phase 5's."""
+    from gpuschedule_tpu_torch.data import TokenFileDataset
+    from gpuschedule_tpu_torch.parallel import ShardedTrainer
+    from gpuschedule_tpu_torch.parallel.checkpoint import restore_state, save_state
+
+    model, rows, seq = RESUME_CELL
+    ds = TokenFileDataset(data_path, batch_size=rows, seq_len=seq)
+    make = lambda: ShardedTrainer(model, batch_size=rows, seq_len=seq,  # noqa: E731
+                                  flash_attn=True)
+    torch.cuda.synchronize()
+    fa.reset_launches()                           # the main path starts here
+    straight_tr = make()
+    straight = straight_tr.init(seed=0)
+    losses = []
+    for batch in _fed(ds, straight_tr, 0, 6):
+        straight, loss = straight_tr.step(straight, batch)
+        losses.append(loss)
+    first_tr = make()
+    first = first_tr.init(seed=0)
+    resumed_losses = []
+    for batch in _fed(ds, first_tr, 0, 3):
+        first, loss = first_tr.step(first, batch)
+        resumed_losses.append(loss)
+    ckpt = save_state(first, os.path.join(tmp, "resume_ckpt"))
+    del first, first_tr
+    trainer = make()
+    state = restore_state(trainer, ckpt)
+    count = state.optimizer.count()
+    for batch in _fed(ds, trainer, 3, 3):
+        state, loss = trainer.step(state, batch)
+        resumed_losses.append(loss)
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES)                  # ... and ends here
+    losses = [x.item() for x in losses]
+    resumed_losses = [x.item() for x in resumed_losses]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(resumed_losses[3:], losses[3:]))
+    gap = _rel_l2(torch, state, straight)
+    log(f"resume in process: straight {losses}, resumed {resumed_losses} (restored at "
+        f"update {count}); steps 4-6 max rel {rel:.2e} (bound {LOSS_RTOL}), bit-equal "
+        f"{resumed_losses[3:] == losses[3:]}; parameters' relative L2 gap after step 6 "
+        f"{gap:.3e}")
+    check(count == 3, f"the restored state made {count} updates, not 3")
+    rel3 = max(abs(a - b) / abs(b) for a, b in zip(resumed_losses[:3], losses[:3]))
+    check(rel3 < LOSS_RTOL, f"the first 3 steps {resumed_losses[:3]} differ from the straight "
+                            f"run's {losses[:3]}")
+    check(rel < LOSS_RTOL, f"resumed losses {resumed_losses[3:]} vs {losses[3:]}")
+    check(all(math.isfinite(x) for x in losses + resumed_losses),
+          f"non-finite losses: {losses}, {resumed_losses}")
+    del straight, straight_tr
+
+    # the restored trainer's replays, fed by prefetch: timing, sync, profile
+    fed = _fed(ds, trainer, 6, 3 * 5 + 3 + 2 + 1, epoch=0)
+    blocks = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            state, loss = trainer.step(state, next(fed))
+        torch.cuda.synchronize()
+        blocks.append((time.perf_counter() - t0) / 5)
+    step_s = sorted(blocks)[1]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            state, loss = trainer.step(state, next(fed))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    before = dict(fa.LAUNCHES)
+    prof = profile_steps(torch, trainer, state, None, feed=fed,
+                         kernels=[KERNELS[name][0] for name in KERNELS])
+    check("device_ms_per_step" in prof, f"prefetch-fed step profile: {prof}")
+    window = {name: (fa.LAUNCHES[name] - before[name]) / prof["steps"] for name in KERNELS}
+    seen = {name: prof["launches_per_step"][KERNELS[name][0]] for name in KERNELS}
+    busy = prof["device_ms_per_step"] / (step_s * 1e3)
+    state, loss = trainer.step(state, next(fed))
+    check(next(fed, None) is None, "the feed held more batches than the steps took")
+    step_rel = (step_s - phase5_s) / phase5_s
+    log(f"prefetch-fed replays of the restored trainer: {step_s * 1e3:.3f} ms/step "
+        f"(blocks {[round(b * 1e3, 4) for b in blocks]}) against phase 5's "
+        f"{phase5_s * 1e3:.3f} ms ({step_rel:+.2%}, bound ±{STEP_RTOL:.0%}); device busy "
+        f"{busy:.3f} (bound {BUSY_MIN}); launches a step: counters {window}, profiler {seen}")
+    check(seen == window == FLASH_PER_STEP,
+          f"restored trainer: the profiler's kernels {seen}, the counters' {window}, expected "
+          f"{FLASH_PER_STEP}")
+    check(busy >= BUSY_MIN, f"the device is busy {busy:.3f} of the prefetch-fed step")
+    check(abs(step_rel) <= STEP_RTOL,
+          f"the prefetch-fed step {step_s * 1e3:.3f} ms is {step_rel:+.2%} off phase 5's")
+    check(all(launches[name] >= 12 * FLASH_PER_STEP[name] for name in KERNELS),
+          f"the resume path did not run every kernel a step: {launches} over 12 steps")
+    check(math.isfinite(loss.item()), "non-finite loss after the fed replays")
+    del state, trainer
+    torch.cuda.empty_cache()
+    return {"losses": losses, "resumed_losses": resumed_losses, "resumed_rel": rel,
+            "bit_equal": resumed_losses[3:] == losses[3:], "param_rel_l2": gap,
+            "restored_count": count, "launches": launches, "steps": 12,
+            "fed_step_ms": step_s * 1e3, "fed_blocks_ms": [b * 1e3 for b in blocks],
+            "phase5_step_ms": phase5_s * 1e3, "fed_vs_phase5": step_rel,
+            "busy_share_of_step": busy, "launches_per_replay": window, "profile": prof}
+
+
+def _train_cli(args, env_extra=None):
+    """``python -m gpuschedule_tpu_torch train`` with ``args``; its exit
+    code, its stdout's last JSON line and its stderr."""
+    model, batch, seq = RESUME_CELL
+    cmd = [sys.executable, "-m", "gpuschedule_tpu_torch", "train", "--model", model,
+           "--batch-size", str(batch), "--seq-len", str(seq), "--flash-attn", *args]
+    env = dict(os.environ, **(env_extra or {}))
+    return subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def _finish_cli(proc, what):
+    try:
+        out, err = proc.communicate(timeout=CLI_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    for text in err.splitlines():
+        print(f"train ({what}): {text}", file=sys.stderr)
+    lines = out.strip().splitlines()
+    log(f"train ({what}): exit {proc.returncode}; {lines[-1] if lines else 'no output'}")
+    check(proc.returncode == 0 and bool(lines), f"train ({what}) exited {proc.returncode}")
+    return json.loads(lines[-1]), err
+
+
+def resume_cli(data_path, tmp, reference) -> dict:
+    """Phase 13 (iii): ``train --data F --steps 3 --ckpt C``, then ``--steps
+    3 --restore C`` and, beside it, a restore with ``--seed 1`` under
+    ``GSTPU_TRACE=1``: both exit 0, ``checkpoint`` is C and its sidecar has
+    the JAX CLI's keys, ``resumed_at_step`` is 3, the resumed first and
+    last losses are (ii)'s steps 4 and 6 within LOSS_RTOL, the seed-1
+    restore warns of the drift and prints a spans line with a
+    ``train.step`` a step."""
+    ckpt = os.path.join(tmp, "cli_ckpt")
+    t0 = time.perf_counter()
+    saved, _ = _finish_cli(_train_cli(["--data", data_path, "--steps", "3", "--ckpt", ckpt]),
+                           "save")
+    procs = (_train_cli(["--data", data_path, "--steps", "3", "--restore", ckpt]),
+             _train_cli(["--data", data_path, "--steps", "3", "--restore", ckpt, "--seed", "1"],
+                        {"GSTPU_TRACE": "1"}))
+    resumed, _ = _finish_cli(procs[0], "restore")
+    drift, err = _finish_cli(procs[1], "restore, --seed 1, GSTPU_TRACE=1")
+    with open(ckpt + ".datastream.json") as f:
+        sidecar = json.load(f)
+    warned = [x for x in err.splitlines() if x.startswith("WARNING: data stream differs")]
+    spans = [json.loads(x)["spans"] for x in err.splitlines() if x.startswith('{"spans"')]
+    want = reference["losses"]
+    rel = max(abs(resumed["first_loss"] - want[3]) / abs(want[3]),
+              abs(resumed["last_loss"] - want[5]) / abs(want[5]))
+    log(f"train CLI resume: checkpoint {saved['checkpoint']}, sidecar {sidecar}; resumed at "
+        f"{resumed['resumed_at_step']}: first {resumed['first_loss']} last "
+        f"{resumed['last_loss']} vs in-process steps 4 and 6 {want[3]} {want[5]} (max rel "
+        f"{rel:.2e}); drift warning {warned}; spans {spans}")
+    check(saved["checkpoint"] == ckpt and saved["resumed_at_step"] is None,
+          f"the saving run's summary: {saved}")
+    check(set(sidecar) == {"seed", "batch_size", "seq_len", "host_shard", "data"},
+          f"the sidecar's keys: {sorted(sidecar)}")
+    check(resumed["resumed_at_step"] == 3 and resumed["checkpoint"] is None,
+          f"the resumed run's summary: {resumed}")
+    check(rel < LOSS_RTOL, f"the CLI's resumed losses are {rel:.2e} off (ii)'s")
+    check(len(warned) == 1 and "seed: 0 -> 1" in warned[0],
+          f"the --seed 1 restore did not warn of the drift: {err[-400:]}")
+    check(len(spans) == 1 and spans[0]["train.step"]["count"] == 3,
+          f"the traced run's spans line: {spans}")
+    return {"saved": saved, "resumed": resumed, "seed1": drift, "sidecar_keys": sorted(sidecar),
+            "resumed_rel": rel, "warning": warned[0], "spans": spans[0],
+            "phase_s": time.perf_counter() - t0}
+
+
+def _filesystem(path) -> str:
+    """The type of the filesystem that holds ``path`` (``stat -f``: a
+    statfs of the path itself)."""
+    res = subprocess.run(["stat", "-f", "-c", "%T", path], capture_output=True, text=True)
+    return res.stdout.strip() if res.returncode == 0 else f"unknown ({res.stderr.strip()})"
+
+
+def _save_restore(torch, state, tokens, base, want) -> dict:
+    """One timed ``save_state`` into a new directory under ``base`` (its
+    filesystem and free space logged first, removed after) and one timed
+    ``restore_state`` onto a new trainer; the restored trainer's next loss
+    on ``tokens``, then everything of it dropped."""
+    from gpuschedule_tpu_torch.parallel import ShardedTrainer
+    from gpuschedule_tpu_torch.parallel.checkpoint import restore_state, save_state
+
+    model, batch, seq = CKPT_MODEL
+    tmp = tempfile.mkdtemp(prefix="gstpu_ckpt_", dir=base)
+    try:
+        free = shutil.disk_usage(tmp).free
+        fs = _filesystem(tmp)
+        log(f"checkpoint cost: {model} into {tmp}: {fs}, {free / 1e9:.1f} GB free")
+        check(free > 1.5 * want, f"{free / 1e9:.1f} GB free in {tmp} where the checkpoint "
+                                 f"needs {want / 1e9:.2f}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save_state(state, os.path.join(tmp, "ck"))
+        save_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(path, n)) for n in os.listdir(path))
+        trainer = ShardedTrainer(model, batch_size=batch, seq_len=seq)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored = restore_state(trainer, path)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(not os.path.exists(tmp), f"{tmp} was not removed")
+    loss = trainer.step(restored, tokens)[1].item()
+    del restored, trainer
+    log(f"checkpoint cost ({fs}): save {save_s:.3f} s ({nbytes:,} bytes, "
+        f"{nbytes / save_s / 1e9:.3f} GB/s), restore {restore_s:.3f} s "
+        f"({nbytes / restore_s / 1e9:.3f} GB/s; the trainer's init and the read, which the "
+        f"page cache may serve); the restored trainer's next loss {loss}")
+    check(nbytes >= want, f"the checkpoint holds {nbytes:,} bytes, under {want:,}")
+    return {"dir": base, "filesystem": fs, "free_bytes": free, "bytes": nbytes,
+            "save_s": save_s, "restore_s": restore_s, "save_gb_per_s": nbytes / save_s / 1e9,
+            "restore_gb_per_s": nbytes / restore_s / 1e9, "next_loss": loss}
+
+
+def ckpt_cost(torch) -> dict:
+    """Phase 13 (iv): ``save_state`` and ``restore_state`` of the
+    flagship's state (CKPT_MODEL, 2 steps so adamw's moments exist) into a
+    temporary directory on the machine's temporary filesystem (TMPDIR) and
+    one in this checkout's (``_save_restore``): seconds, bytes written (at
+    least CKPT_BYTES_PER_PARAM a parameter) and GB/s; each restored
+    trainer's next loss must equal the unrestored trainer's within
+    LOSS_RTOL, and the memory of all of them must be given back."""
+    import gc
+
+    from gpuschedule_tpu_torch.parallel import ShardedTrainer
+
+    model, batch, seq = CKPT_MODEL
+    torch.cuda.synchronize()
+    held0 = torch.cuda.memory_allocated()
+    trainer = ShardedTrainer(model, batch_size=batch, seq_len=seq)
+    state = trainer.init(seed=0)
+    tokens = trainer.make_batch(seed=0)
+    for _ in range(2):
+        state = trainer.step(state, tokens)[0]
+    n_params = sum(p.numel() for p in state.model.parameters())
+    want = CKPT_BYTES_PER_PARAM * n_params
+    log(f"checkpoint cost: {model} b{batch} S{seq} after 2 steps, {n_params:,} parameters, "
+        f"{want / 1e9:.3f} GB at {CKPT_BYTES_PER_PARAM} B/param")
+    rows = [_save_restore(torch, state, tokens, base, want)
+            for base in (tempfile.gettempdir(), str(ROOT))]
+    ref = trainer.step(state, tokens)[1].item()
+    del state, trainer, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    kept_mib = (torch.cuda.memory_allocated() - held0) / 2**20
+    rels = [abs(r["next_loss"] - ref) / abs(ref) for r in rows]
+    log(f"checkpoint cost: the unrestored trainer's next loss {ref}, the restored ones' "
+        f"{[r['next_loss'] for r in rows]} (rel {rels}); {kept_mib:.1f} MiB still allocated "
+        f"after (bound {PROFILE_KEPT_MIB} MiB)")
+    check(max(rels) < LOSS_RTOL, "a restored trainer's next loss is not the unrestored one's")
+    check(kept_mib <= PROFILE_KEPT_MIB, "the checkpoint phase keeps a trainer's memory")
+    return {"model": model, "batch": batch, "seq": seq, "params": n_params,
+            "bytes_at_12_per_param": want, "rows": rows, "next_loss_unrestored": ref,
+            "next_loss_rel": rels, "kept_mib": kept_mib}
+
+
+def ckpt_phase(torch, fa, smi, phase5_s) -> dict:
+    """Phase 13: data and checkpoints.  (i) a token file written by the
+    port's ``TokenFileDataset.write`` (uint16, transformer-long's vocab,
+    DATA_BATCHES batches of 2 x 4096, numpy seed 13); (ii) the resume in
+    process (``resume_in_process``); (iii) through the CLI
+    (``resume_cli``); (iv) the checkpoint's cost at the flagship's state
+    (``ckpt_cost``)."""
+    import numpy as np
+
+    from gpuschedule_tpu_torch.data import TokenFileDataset
+    from gpuschedule_tpu_torch.models import MODEL_CONFIGS
+
+    t0 = time.perf_counter()
+    model, batch, seq = RESUME_CELL
+    with tempfile.TemporaryDirectory(prefix="gstpu_data_") as tmp:
+        vocab = MODEL_CONFIGS[model].vocab
+        tokens = np.random.default_rng(13).integers(0, vocab, size=DATA_BATCHES * batch * seq)
+        data = str(TokenFileDataset.write(tokens, os.path.join(tmp, "tokens.bin")))
+        check(len(TokenFileDataset(data, batch_size=batch, seq_len=seq)) == DATA_BATCHES,
+              "the token file does not hold DATA_BATCHES batches")
+        log(f"phase 13 data: {os.path.getsize(data):,} bytes, {DATA_BATCHES} batches of "
+            f"{batch} x {seq} uint16 tokens below {vocab}")
+        inproc = resume_in_process(torch, fa, data, phase5_s, tmp)
+        cli = resume_cli(data, tmp, inproc)
+    cost = ckpt_cost(torch)
+    return {"card": smi, "in_process": inproc, "cli": cli, "cost": cost,
+            "phase_s": time.perf_counter() - t0}
+
+
 def run() -> dict:
     import torch
 
@@ -1469,6 +1826,10 @@ def run() -> dict:
     print(json.dumps({"zoo": zoo}))
 
     # --------------------------------------------------------------- 13 --
+    ckpt = ckpt_phase(torch, fa, smi, step_s)
+    print(json.dumps({"ckpt": ckpt}))
+
+    # --------------------------------------------------------------- 14 --
     train = {
         "card": smi, "build_s": build_s,
         "flash": {"model": "transformer-long", "batch": 2, "seq": 4096,
@@ -1494,6 +1855,7 @@ def run() -> dict:
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
          "library_ms": library[name], "launches_bench": bench_launches[name],
          "launches_moe_flash": zoo["moe_flash"]["launches"][name],
+         "launches_ckpt": ckpt["in_process"]["launches"][name],
          "longctx": longctx["kernels"][name]}
         for name, (cname, f32_name, replaces) in KERNELS.items()
     ] + [

@@ -2,18 +2,24 @@
 
 Counterparts of the JAX package's subcommands:
 
-- ``train`` builds a dp x sp mesh and the trainer over it, feeds it
-  :func:`synthetic_lm_batches` and prints one JSON summary line with the
-  JAX CLI's keys (``model``, ``steps``, ``mesh``, ``first_loss``,
-  ``last_loss``, ``tokens_per_s`` rounded to 0.1, ``checkpoint``,
-  ``resumed_at_step``), plus ``device``.  ``--sp``, ``--devices`` and
-  ``--ring-attn`` mean what they mean there; the ranks come from the
-  launcher (``torchrun --nproc-per-node N -m gpuschedule_tpu_torch train``),
-  one a device, and rank 0 prints the line.  Without a launcher it runs on
-  one device.  ``--tp`` above 1, ``--data``, ``--ckpt`` and ``--restore``
-  are not ported yet (ROADMAP.md), so the last two keys are null.
-  It trains the dense and MoE LMs; a CNN exits with the JAX CLI's
-  message (image models are profile-only there too).
+- ``train`` builds a dp x sp mesh and the trainer over it, feeds it from a
+  token file (``--data``, ``--data-dtype``, ``--host-shard``) or
+  :func:`synthetic_lm_batches` through ``prefetch_to_device(size=2)``,
+  optionally restores from (``--restore``) and saves to (``--ckpt``) a
+  checkpoint, and prints one JSON summary line with the JAX CLI's keys
+  (``model``, ``steps``, ``mesh``, ``first_loss``, ``last_loss``,
+  ``tokens_per_s`` rounded to 0.1, ``checkpoint``, ``resumed_at_step``),
+  plus ``device``.  The flags mean what they mean there, their errors
+  are the same, and so is the datastream sidecar ``<ckpt>.datastream.json``
+  (rank 0 writes it) with the stderr warning when a resumed run's stream
+  differs from it.  With the tracer on (``GSTPU_TRACE=1``) the spans'
+  summary goes to stderr as ``{"spans": ...}``.  ``--sp``, ``--devices``
+  and ``--ring-attn`` mean what they mean there; the ranks come from the
+  launcher (``torchrun --nproc-per-node N -m gpuschedule_tpu_torch
+  train``), one a device, and rank 0 prints the line.  Without a launcher
+  it runs on one device.  ``--tp`` above 1 is not ported yet
+  (ROADMAP.md).  It trains the dense and MoE LMs; a CNN exits with the
+  JAX CLI's message (image models are profile-only there too).
 - ``profile`` measures each ``--model``'s step (any zoo model), fits its goodput curve into
   the ``--curves`` JSON that the simulator's Optimus policy reads
   (``gpuschedule_tpu run --policy optimus --curves``), and prints
@@ -24,10 +30,12 @@ Counterparts of the JAX package's subcommands:
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
 import sys
 import time
+from pathlib import Path
 from typing import Optional, Sequence
 
 import torch
@@ -67,9 +75,77 @@ def cmd_train(args) -> int:
             dist.destroy_process_group()
 
 
+def _datastream_identity(args) -> dict:
+    """What makes the training data stream what it is: the count-based
+    resume offset is valid only when every one of these matches the
+    saved run's (the JAX CLI's keys)."""
+    import hashlib
+
+    ident = {
+        "seed": args.seed,
+        "batch_size": args.batch_size,
+        "seq_len": args.seq_len,
+        "host_shard": getattr(args, "host_shard", None),
+        "data": None,
+    }
+    if args.data and os.path.exists(args.data):
+        h = hashlib.sha256()
+        with open(args.data, "rb") as f:
+            h.update(f.read(1 << 20))  # first MiB + size: a cheap fingerprint
+        ident["data"] = {"bytes": os.path.getsize(args.data), "sha256_head": h.hexdigest()}
+    return ident
+
+
+def _meta_path(ckpt: str) -> Path:
+    return Path(str(ckpt) + ".datastream.json")
+
+
+def _write_datastream_meta(args) -> None:
+    _meta_path(args.ckpt).write_text(json.dumps(_datastream_identity(args)))
+
+
+def _warn_on_datastream_drift(args) -> None:
+    """Compare this run's stream identity with the checkpoint's; a
+    mismatch means the count-based resume would replay seen data or skip
+    unseen data: warn, do not block (a dataset may be switched on
+    purpose)."""
+    path = _meta_path(args.restore)
+    if not path.exists():
+        return  # a checkpoint without a sidecar: nothing to compare
+    saved = json.loads(path.read_text())
+    current = _datastream_identity(args)
+    drift = {k: (saved.get(k), current.get(k)) for k in current if saved.get(k) != current.get(k)}
+    if drift:
+        print(
+            "WARNING: data stream differs from the checkpointed run "
+            f"({', '.join(f'{k}: {a!r} -> {b!r}' for k, (a, b) in drift.items())}); "
+            "count-based resume may replay seen data or skip unseen data",
+            file=sys.stderr,
+        )
+
+
+def _host_shard(arg) -> "tuple[Optional[tuple[int, int]], int]":
+    """``--host-shard INDEX,COUNT`` as ``(host_shard, COUNT)``; (None, 1) unset."""
+    if not arg:
+        return None, 1
+    try:
+        i, n = (int(x) for x in arg.split(","))
+    except ValueError:
+        raise SystemExit(f"--host-shard wants INDEX,COUNT; got {arg!r}")
+    if n < 1 or not (0 <= i < n):
+        raise SystemExit(f"--host-shard needs 0 <= INDEX < COUNT; got {i},{n}")
+    return (i, n), n
+
+
 def _train(args) -> int:
-    from gpuschedule_tpu_torch.data import synthetic_lm_batches
+    from gpuschedule_tpu_torch.data import (
+        TokenFileDataset,
+        prefetch_to_device,
+        synthetic_lm_batches,
+    )
+    from gpuschedule_tpu_torch.obs import get_tracer
     from gpuschedule_tpu_torch.parallel import ShardedTrainer, make_mesh
+    from gpuschedule_tpu_torch.parallel.checkpoint import restore_state, save_state
 
     try:
         mesh = make_mesh(sp=args.sp, tp=args.tp, devices=args.devices, device=args.device)
@@ -93,17 +169,64 @@ def _train(args) -> int:
             f"{args.model!r} is a CNN config; `train` feeds LM token "
             "batches (image models are profile-only for now)"
         )
-    state = trainer.init(seed=args.seed)
-    batches = synthetic_lm_batches(
-        batch_size=trainer.batch_size, seq_len=args.seq_len,
-        vocab=trainer.cfg.vocab, num_batches=args.steps, seed=args.seed,
-    )
+    rank0 = not dist.is_initialized() or dist.get_rank() == 0
+    state = restore_state(trainer, args.restore) if args.restore else trainer.init(seed=args.seed)
+    # resume the data stream where the saved run left it: adamw's count is
+    # the number of batches consumed, so a seeded stream restarts at it.
+    # That breaks if this run changes the stream (seed, shape, file): the
+    # save writes the stream's identity beside the checkpoint, and a
+    # restore warns on any drift.
+    resumed_at = 0
+    if args.restore:
+        if rank0:
+            _warn_on_datastream_drift(args)
+        resumed_at = state.optimizer.count()  # one read, here
+
+    # the count is this host's batches; stream positions are global: under
+    # --host-shard i,n the host consumed positions i, i+n, ..., so its next
+    # global position is resumed_at * n
+    host_shard, shard_n = _host_shard(args.host_shard)
+    if args.data:
+        ds = TokenFileDataset(
+            args.data, batch_size=trainer.batch_size, seq_len=args.seq_len,
+            dtype=args.data_dtype, seed=args.seed,
+        )
+        if ds.num_batches % shard_n:
+            # unequal per-host epochs would desync the resume arithmetic
+            raise SystemExit(
+                f"--host-shard COUNT={shard_n} must divide the dataset's "
+                f"{ds.num_batches} batches for resumable streams"
+            )
+        per_host_epoch = ds.num_batches // shard_n
+
+        def batches():
+            # O(1) jump to the resume position: whole epochs are in the
+            # per-host count, the rest maps back to a global position
+            epoch, k = divmod(resumed_at, per_host_epoch)
+            start = k * shard_n
+            while True:
+                yield from ds.batches(epoch=epoch, start=start, host_shard=host_shard)
+                epoch += 1
+                start = 0
+    else:
+        def batches():
+            yield from synthetic_lm_batches(
+                batch_size=trainer.batch_size, seq_len=args.seq_len,
+                vocab=trainer.cfg.vocab,
+                num_batches=(resumed_at + args.steps) * shard_n,
+                seed=args.seed,
+                start=resumed_at * shard_n,
+                host_shard=host_shard,
+            )
+
+    feed = prefetch_to_device(itertools.islice(batches(), args.steps), size=2,
+                              sharding=trainer.batch_sharding)
     first_loss = None
     t0 = None
     n = 0
     loss = None
-    for tokens in batches:
-        state, loss = trainer.step(state, trainer.to_device(tokens))
+    for batch in feed:
+        state, loss = trainer.step(state, batch)
         n += 1
         if first_loss is None:
             # the readback fences step 1 (kernel build, allocator warm-up);
@@ -116,9 +239,13 @@ def _train(args) -> int:
         round((n - 1) * trainer.batch_size * args.seq_len / elapsed, 1)
         if n > 1 and elapsed > 0 else None
     )
-    dev = trainer.device
-    if dist.is_initialized() and dist.get_rank() != 0:
+    if args.ckpt:
+        save_state(state, args.ckpt)
+        if rank0:
+            _write_datastream_meta(args)
+    if not rank0:
         return 0  # the loss is the global mean on every rank: rank 0 reports it
+    dev = trainer.device
     print(json.dumps({
         "model": args.model,
         "steps": n,
@@ -126,10 +253,13 @@ def _train(args) -> int:
         "first_loss": first_loss,
         "last_loss": last_loss,
         "tokens_per_s": tokens_per_s,
-        "checkpoint": None,
-        "resumed_at_step": None,
+        "checkpoint": args.ckpt or None,
+        "resumed_at_step": resumed_at if args.restore else None,
         "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
     }, sort_keys=True))
+    if get_tracer().enabled:
+        # the per-step spans aggregated, on stderr: stdout stays one line
+        print(json.dumps({"spans": get_tracer().summary()}, sort_keys=True), file=sys.stderr)
     return 0
 
 
@@ -186,6 +316,15 @@ def build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--ring-attn", action="store_true",
                     help="sequence-shard over sp with ring attention (with --flash-attn, "
                          "the ring-flash composition)")
+    tr.add_argument("--data", help="flat binary token file (see data/)")
+    tr.add_argument("--data-dtype", default="uint16")
+    tr.add_argument("--host-shard", default=None, metavar="INDEX,COUNT",
+                    help="multi-host input split: this host yields every "
+                         "COUNT-th batch starting at INDEX (streams "
+                         "partition the epoch exactly; resume offsets "
+                         "stay host-count-independent)")
+    tr.add_argument("--ckpt", help="save final state here (torch.distributed.checkpoint)")
+    tr.add_argument("--restore", help="resume from this checkpoint")
     tr.add_argument("--device", default=None,
                     help="'cpu' for the plain PyTorch versions; default: the card")
     tr.set_defaults(fn=cmd_train)

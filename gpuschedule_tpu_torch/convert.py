@@ -1,4 +1,5 @@
-"""Flax parameter trees -> this package's ``state_dict``.
+"""Flax parameter trees -> this package's ``state_dict``, and optax adamw
+state -> the optimizer entries of a checkpoint's dict.
 
 The port's modules keep flax's parameter names and shapes, so the mapping
 is by path alone: a ``state_dict`` name is the flax path joined by dots,
@@ -8,12 +9,17 @@ in ``blocks.{i}`` (``block0/attn/query/kernel`` is
 the config's own module, built on the meta device, so the mapping follows
 the modules (dense or MoE MLP, CNN) with no list of its own.  Arrays
 arrive as numpy (``jax.device_get`` of the tree); nothing here imports JAX.
+
+:func:`opt_state_from_jax` carries the JAX trainer's ``opt_state`` across
+in the middle of training: adamw's moments map by the same paths, and the
+counts become adamw's step and the schedule's position, in the flat form
+of ``parallel/checkpoint.py``'s ``state_dict``.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,4 +55,45 @@ def params_from_jax(params: Mapping, cfg: "ModelConfig | CnnConfig") -> Dict[str
         except KeyError:
             raise KeyError(f"flax parameter {'/'.join(flax_path)} is missing") from None
         out[name] = torch.from_numpy(np.array(arr, dtype=np.float32))
+    return out
+
+
+def _optax_parts(opt_state) -> Tuple[object, bool, Optional[object]]:
+    """(adam's state, whether a clip leads the chain, the schedule's state
+    or None) of the JAX ``make_optimizer``'s ``opt_state``: ``(adam,
+    decay, rate)`` for ``optax.adamw``, ``(clip, (adam, decay, rate))``
+    with ``grad_clip``; the clip's state is an empty tuple, the rate's
+    holds a ``count`` when there is a schedule.  Read by structure: the
+    port imports no optax."""
+    clipped = len(opt_state) == 2 and len(opt_state[0]) == 0
+    adam, _decay, rate = opt_state[1] if clipped else opt_state
+    # fields by name: every tuple has a ``count`` method
+    if not {"mu", "nu", "count"} <= set(getattr(adam, "_fields", ())):
+        raise ValueError(f"not the opt_state of optax.adamw: {type(adam).__name__}")
+    return adam, clipped, (rate if "count" in getattr(rate, "_fields", ()) else None)
+
+
+def opt_state_from_jax(opt_state, cfg: "ModelConfig | CnnConfig") -> Dict[str, torch.Tensor]:
+    """The ``optimizer.*`` entries of a checkpoint's dict
+    (``parallel.checkpoint.state_dict``) holding optax adamw's ``opt_state``
+    (the JAX ``make_optimizer``'s, any of its four forms): each
+    parameter's ``mu`` and ``nu`` as its ``exp_avg`` and ``exp_avg_sq``
+    and adam's ``count`` as its ``step``; the schedule's ``count`` (adam's
+    where there is no schedule: both advance once an update) as
+    ``optimizer.count``; whether a clip and a schedule are in the chain as
+    ``optimizer.grad_clip`` and ``optimizer.schedule``.  With the
+    parameters (``model.`` + :func:`params_from_jax`) it loads into a
+    trainer with ``load_state_dict``."""
+    adam, clipped, sched = _optax_parts(opt_state)
+    mu, nu = params_from_jax(adam.mu, cfg), params_from_jax(adam.nu, cfg)
+    step = float(np.asarray(adam.count))
+    out: Dict[str, torch.Tensor] = {}
+    for name in mu:
+        out[f"optimizer.{name}.exp_avg"] = mu[name]
+        out[f"optimizer.{name}.exp_avg_sq"] = nu[name]
+        out[f"optimizer.{name}.step"] = torch.tensor(step, dtype=torch.float32)
+    count = np.asarray((sched or adam).count)
+    out["optimizer.count"] = torch.tensor(int(count), dtype=torch.int64)
+    out["optimizer.grad_clip"] = torch.tensor(int(clipped), dtype=torch.int64)
+    out["optimizer.schedule"] = torch.tensor(int(sched is not None), dtype=torch.int64)
     return out

@@ -1,0 +1,192 @@
+"""Span tracer: nested wall-clock spans with a zero-cost disabled path.
+
+The port's own copy of ``gpuschedule_tpu/obs/tracer.py`` (which imports no
+JAX, but the port imports nothing of the JAX package), cut to what the
+port's spans use: ``Span``, ``Tracer`` (``span``, ``record``, ``spans``,
+``summary``), :data:`NULL_SPAN` and the ``GSTPU_TRACE`` switch, so a span
+the port records has the name and attribute keys of the JAX package's
+span for the same call.  The JAX tracer's simulated clock and Chrome
+export have no caller in the port and are left out.
+
+A span is a context-managed interval with a name, a category and
+attributes.  Spans nest: each thread keeps its own depth stack.
+
+Cost:
+
+- **disabled** (the default): a call site checks ``tracer.enabled`` (one
+  attribute load) or receives the shared :data:`NULL_SPAN`, whose methods
+  are empty: no allocation, no lock, no clock read, no device sync;
+- **enabled**: one ``perf_counter`` pair, one small ``Span`` and one
+  lock-guarded list append per span.  The train step's span is fenced by a
+  readback of the loss (``ShardedTrainer.step``), which serialises the
+  host with the device while tracing is on.
+
+Enable programmatically (``get_tracer().enable()``) or with
+``GSTPU_TRACE=1`` in the environment (read at import).
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional
+
+
+@dataclass
+class Span:
+    """One finished (or in-flight) traced interval."""
+
+    name: str
+    cat: str = ""
+    wall_start: float = 0.0          # perf_counter seconds, tracer-origin relative
+    wall_dur: float = 0.0
+    depth: int = 0                   # nesting level within the opening thread
+    thread: int = 0                  # opening thread ident
+    attrs: Dict[str, Any] = field(default_factory=dict)
+
+    def set(self, **attrs) -> "Span":
+        """Attach attributes mid-span (e.g. a result computed inside it)."""
+        self.attrs.update(attrs)
+        return self
+
+
+class _NullSpan:
+    """Shared no-op span handed out while tracing is disabled."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> "_NullSpan":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+    def set(self, **attrs) -> "_NullSpan":
+        return self
+
+
+NULL_SPAN = _NullSpan()
+
+
+class _SpanCtx:
+    """Context manager binding one live Span to the tracer's thread stack."""
+
+    __slots__ = ("_tracer", "span")
+
+    def __init__(self, tracer: "Tracer", span: Span):
+        self._tracer = tracer
+        self.span = span
+
+    def __enter__(self) -> Span:
+        tl = self._tracer._tl
+        depth = getattr(tl, "depth", 0)
+        self.span.depth = depth
+        tl.depth = depth + 1
+        self.span.wall_start = time.perf_counter() - self._tracer._origin
+        return self.span
+
+    def __exit__(self, *exc) -> bool:
+        sp = self.span
+        sp.wall_dur = (time.perf_counter() - self._tracer._origin) - sp.wall_start
+        tl = self._tracer._tl
+        tl.depth = max(0, getattr(tl, "depth", 1) - 1)
+        self._tracer._append(sp)
+        return False
+
+
+class Tracer:
+    """Collects spans; a process-wide singleton lives behind :func:`get_tracer`.
+
+    ``enabled`` is the single switch every instrumented call site keys on;
+    ``wall_start`` 0 is the tracer's creation (or last ``reset``)."""
+
+    def __init__(self, *, enabled: bool = False):
+        self.enabled = bool(enabled)
+        self._origin = time.perf_counter()
+        self._spans: List[Span] = []
+        self._lock = threading.Lock()
+        self._tl = threading.local()
+
+    def enable(self) -> "Tracer":
+        self.enabled = True
+        return self
+
+    def disable(self) -> "Tracer":
+        self.enabled = False
+        return self
+
+    def reset(self) -> "Tracer":
+        """Drop collected spans and re-anchor the wall origin."""
+        with self._lock:
+            self._spans = []
+        self._origin = time.perf_counter()
+        return self
+
+    def span(self, name: str, *, cat: str = "", **attrs):
+        """Open a span as a context manager; returns :data:`NULL_SPAN` when
+        disabled so the call site stays branch-free."""
+        if not self.enabled:
+            return NULL_SPAN
+        return _SpanCtx(self, Span(name=name, cat=cat, thread=threading.get_ident(),
+                                   attrs=dict(attrs) if attrs else {}))
+
+    def record(
+        self,
+        name: str,
+        *,
+        wall_start: float,
+        wall_dur: float,
+        cat: str = "",
+        **attrs,
+    ) -> Optional[Span]:
+        """Record a span measured by the caller (e.g. a fenced train step).
+        ``wall_start`` is an absolute ``perf_counter`` reading, re-based to
+        the tracer's origin.  No-op (returns None) when disabled."""
+        if not self.enabled:
+            return None
+        sp = Span(
+            name=name,
+            cat=cat,
+            wall_start=wall_start - self._origin,
+            wall_dur=wall_dur,
+            depth=getattr(self._tl, "depth", 0),
+            thread=threading.get_ident(),
+            attrs=dict(attrs) if attrs else {},
+        )
+        self._append(sp)
+        return sp
+
+    def _append(self, span: Span) -> None:
+        with self._lock:
+            self._spans.append(span)
+
+    @property
+    def spans(self) -> List[Span]:
+        """Snapshot of finished spans (a copy: safe to iterate while tracing)."""
+        with self._lock:
+            return list(self._spans)
+
+    def summary(self) -> Dict[str, Dict[str, float]]:
+        """Per-span-name aggregate: count, total/mean/max wall seconds."""
+        agg: Dict[str, Dict[str, float]] = {}
+        for sp in self.spans:
+            a = agg.setdefault(sp.name, {"count": 0, "total_s": 0.0, "max_s": 0.0})
+            a["count"] += 1
+            a["total_s"] += sp.wall_dur
+            a["max_s"] = max(a["max_s"], sp.wall_dur)
+        for a in agg.values():
+            a["mean_s"] = a["total_s"] / a["count"] if a["count"] else 0.0
+        return agg
+
+
+_TRACER = Tracer(
+    enabled=os.environ.get("GSTPU_TRACE", "").strip().lower()
+    not in ("", "0", "false", "no", "off")
+)
+
+
+def get_tracer() -> Tracer:
+    """The process-wide tracer singleton every instrumented call site uses."""
+    return _TRACER

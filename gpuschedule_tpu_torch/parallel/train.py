@@ -33,18 +33,19 @@ clip comes before adam, as ``optax.clip_by_global_norm`` computes it.
 from __future__ import annotations
 
 import math
+import time
 from dataclasses import dataclass
 from functools import partial
 from typing import Callable, Dict, Iterable, Optional, Tuple, Union
 
-import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from gpuschedule_tpu_torch.data.loader import synthetic_lm_batches
+from gpuschedule_tpu_torch.data.loader import BatchSharding, synthetic_lm_batches
 from gpuschedule_tpu_torch.models.config import CnnConfig
 from gpuschedule_tpu_torch.models.transformer import build_model, model_config
+from gpuschedule_tpu_torch.obs.tracer import get_tracer
 from gpuschedule_tpu_torch.ops import launches
 from gpuschedule_tpu_torch.parallel.mesh import Mesh, make_mesh, world_size
 
@@ -85,6 +86,7 @@ class Optimizer:
     adamw: torch.optim.AdamW
     schedule: torch.optim.lr_scheduler.LambdaLR
     grad_clip: Optional[float]
+    scheduled: bool = False  # a warmup or a decay: optax's scale_by_schedule (it has a count)
 
     def update(self) -> None:
         """Clip and adamw: the part of :meth:`step` that runs on the device
@@ -100,6 +102,29 @@ class Optimizer:
 
     def zero_grad(self) -> None:
         self.adamw.zero_grad(set_to_none=True)
+
+    def count(self) -> int:
+        """The updates made so far: adamw's step count (0 before the
+        first), what optax keeps as the ``count`` leaves of ``opt_state``.
+        One read of the device (a sync on a card): read it at restore,
+        never in the step."""
+        steps = [s["step"] for s in self.adamw.state.values() if "step" in s]
+        return int(torch.stack(steps).max().item()) if steps else 0
+
+    def seek(self, count: int) -> None:
+        """Put the schedule at update ``count``: its position
+        (``last_epoch``) and the rate it gives there, written into the rate
+        the optimizer reads (``fill_`` of the device tensor a capturable
+        adamw and its captured graph read)."""
+        sched = self.schedule
+        sched.last_epoch = count
+        rates = [base * fn(count) for base, fn in zip(sched.base_lrs, sched.lr_lambdas)]
+        for group, rate in zip(self.adamw.param_groups, rates):
+            if isinstance(group["lr"], torch.Tensor):
+                group["lr"].fill_(rate)
+            else:
+                group["lr"] = rate
+        sched._last_lr = rates
 
 
 def make_optimizer(
@@ -140,7 +165,7 @@ def make_optimizer(
     sched = torch.optim.lr_scheduler.LambdaLR(
         adamw, partial(lr_factor, warmup_steps=warmup_steps, decay_steps=decay_steps)
     )
-    return Optimizer(adamw, sched, grad_clip)
+    return Optimizer(adamw, sched, grad_clip, scheduled=bool(warmup_steps or decay_steps))
 
 
 def _all_reduce_grads(model: torch.nn.Module) -> None:
@@ -294,6 +319,9 @@ class ShardedTrainer:
         # (replicas of each loss sum) when the sequence is not split
         self.last_chunk = not seq_shard or mesh.coordinate("sp") == sp - 1
         self.replicas = sp // self.split
+        # the same cut, for to_device and prefetch_to_device
+        self.batch_sharding = BatchSharding(self.device, self.row0, self.rows,
+                                            self.seq_offset, self.local_seq)
         # the state the graphs below belong to, and its graphs by batch key
         # (None: warmed up, not captured yet)
         self._graph_state: Optional[TrainState] = None
@@ -329,18 +357,13 @@ class ShardedTrainer:
         return self.to_device(tokens)
 
     def to_device(self, batch) -> Batch:
-        """This rank's share of a global batch, on the device.  Tokens
-        (batch, seq): its dp rows and, with the sequence split, its sp chunk
-        and one token past it, the label of the chunk's last position (the
-        last chunk has none past it).  An ``(images, labels)`` pair: its dp
-        rows of each, as f32 and int64.  On one rank, the whole batch."""
-        rows = slice(self.row0, self.row0 + self.rows)
-        if self.is_image:
-            images, labels = (torch.as_tensor(np.asarray(x)) for x in batch)
-            return (images[rows].float().to(self.device), labels[rows].long().to(self.device))
-        t = torch.from_numpy(np.asarray(batch)).long()
-        t = t[rows, self.seq_offset:self.seq_offset + self.local_seq + 1]
-        return t.to(self.device)
+        """This rank's share of a global batch, on the device
+        (:attr:`batch_sharding`).  Tokens (batch, seq): its dp rows and,
+        with the sequence split, its sp chunk and one token past it, the
+        label of the chunk's last position (the last chunk has none past
+        it), as int64.  An ``(images, labels)`` pair: its dp rows of each,
+        as f32 and int64.  On one rank, the whole batch."""
+        return self.batch_sharding.to_device(batch)
 
     @staticmethod
     def loss(logits: torch.Tensor, tokens: torch.Tensor,
@@ -389,7 +412,35 @@ class ShardedTrainer:
         drops the graphs of the old one.  A capture that fails raises.
 
         On more than one rank the step runs eagerly (:meth:`_eager_step`):
-        no capture of a step with collectives is checked yet."""
+        no capture of a step with collectives is checked yet.
+
+        With the tracer on (``GSTPU_TRACE=1``) every step is recorded as a
+        ``train.step`` span with the JAX trainer's attributes, fenced by a
+        readback of the loss, so tracing serialises the host with the
+        device.  Tracing off (the default), the step reads one attribute
+        more: no sync, no allocation."""
+        tracer = get_tracer()
+        if not tracer.enabled:
+            return self._step(state, batch)
+        t0 = time.perf_counter()
+        state, loss = self._step(state, batch)
+        loss_val = float(loss)  # fence: the readback makes the wall time real
+        dt = time.perf_counter() - t0
+        n_tokens = self.batch_size * (1 if self.is_image else self.seq_len)
+        tracer.record(
+            "train.step",
+            wall_start=t0,
+            wall_dur=dt,
+            cat="train",
+            step_time_s=round(dt, 6),
+            tokens=n_tokens,
+            tokens_per_s=round(n_tokens / dt, 1) if dt > 0 else None,
+            loss=loss_val,
+        )
+        return state, loss
+
+    def _step(self, state: TrainState, batch: Batch) -> Tuple[TrainState, torch.Tensor]:
+        """:meth:`step` untraced."""
         if self.world > 1 or self.device.type != "cuda":
             return self._eager_step(state, batch)
         if state is not self._graph_state:

@@ -6,8 +6,11 @@ and ``profile_model``; and, for single kernels, ``device_ms_per_launch`` (a
 ``torch.profiler`` window) and ``host_us_per_call`` (the launch path).  PyTorch returns before the device finishes, so
 every timed window ends in ``torch.cuda.synchronize()`` (steps) or is read
 from CUDA events (callables).  The JAX package's host-readback fence works
-around its TPU transport and has no counterpart here, nor have its tracer
-spans (ROADMAP.md).
+around its TPU transport and has no counterpart here.  With the tracer on
+(``GSTPU_TRACE=1``, ``obs/tracer.py``) the JAX harness's spans are
+recorded with its names and attributes: ``profiler.block`` (one a timed
+block), ``profiler.measure_step_time``, ``profiler.capture_trace`` and
+``profiler.profile_model``.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 
 from gpuschedule_tpu_torch.cluster.tpu import GENERATIONS
 from gpuschedule_tpu_torch.models import MODEL_CONFIGS
+from gpuschedule_tpu_torch.obs.tracer import get_tracer
 from gpuschedule_tpu_torch.parallel.train import ShardedTrainer
 from gpuschedule_tpu_torch.profiler.goodput import (
     CurveCache,
@@ -49,13 +53,17 @@ def time_steps(step_fn, state, tokens, *, iters: int, repeats: int = 3):
     if iters < 1 or repeats < 1:
         raise ValueError(f"iters/repeats must be >= 1, got {iters}/{repeats}")
     _fence(tokens)
+    tracer = get_tracer()
     block_times: List[float] = []
-    for _ in range(repeats):
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            state, loss = step_fn(state, tokens)
-        _fence(loss)
-        block_times.append((time.perf_counter() - t0) / iters)
+    for block in range(repeats):
+        with tracer.span("profiler.block", cat="profiler", block=block, iters=iters) as sp:
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                state, loss = step_fn(state, tokens)
+            _fence(loss)
+            block_s = (time.perf_counter() - t0) / iters
+            sp.set(s_per_step=block_s)
+        block_times.append(block_s)
     return statistics.median(block_times), state
 
 
@@ -145,17 +153,20 @@ def measure_step_time(
     ``seq_len`` means nothing to a CNN) on one device (``cuda`` unless
     ``device="cpu"``), after ``warmup`` steps: at least the two that warm
     up and capture the step on the card."""
-    trainer = ShardedTrainer(
-        model_name, batch_size=batch_size, seq_len=seq_len,
-        flash_attn=flash_attn, device=device,
-    )
-    state = trainer.init(seed=0)
-    batch = trainer.make_batch(seed=0)
-    loss = None
-    for _ in range(max(2, warmup)):
-        state, loss = trainer.step(state, batch)
-    _fence(loss)
-    step_s, _ = time_steps(trainer.step, state, batch, iters=iters, repeats=repeats)
+    with get_tracer().span("profiler.measure_step_time", cat="profiler", model=model_name,
+                           k=1, sp=1, tp=1, pp=1) as sp_:
+        trainer = ShardedTrainer(
+            model_name, batch_size=batch_size, seq_len=seq_len,
+            flash_attn=flash_attn, device=device,
+        )
+        state = trainer.init(seed=0)
+        batch = trainer.make_batch(seed=0)
+        loss = None
+        for _ in range(max(2, warmup)):
+            state, loss = trainer.step(state, batch)
+        _fence(loss)
+        step_s, _ = time_steps(trainer.step, state, batch, iters=iters, repeats=repeats)
+        sp_.set(step_s=step_s)
     return step_s
 
 
@@ -180,23 +191,26 @@ def capture_trace(
     the file in ui.perfetto.dev or chrome://tracing."""
     from torch.profiler import ProfilerActivity, profile
 
-    trainer = ShardedTrainer(model_name, batch_size=batch_size, seq_len=seq_len, device=device)
-    state = trainer.init(seed=0)
-    batch = trainer.make_batch(seed=0)
-    for _ in range(2):
-        state, loss = trainer.step(state, batch)
-    _fence(loss)
-    cuda = trainer.device.type == "cuda"
-    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
-    with profile(activities=activities) as prof:
-        for _ in range(steps):
+    with get_tracer().span("profiler.capture_trace", cat="profiler", model=model_name,
+                           steps=steps):
+        trainer = ShardedTrainer(model_name, batch_size=batch_size, seq_len=seq_len,
+                                 device=device)
+        state = trainer.init(seed=0)
+        batch = trainer.make_batch(seed=0)
+        for _ in range(2):
             state, loss = trainer.step(state, batch)
-        if cuda:
-            torch.cuda.synchronize(trainer.device)
-    out = Path(out_dir)
-    out.mkdir(parents=True, exist_ok=True)
-    path = out / "trace.json"
-    prof.export_chrome_trace(str(path))
+        _fence(loss)
+        cuda = trainer.device.type == "cuda"
+        activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+        with profile(activities=activities) as prof:
+            for _ in range(steps):
+                state, loss = trainer.step(state, batch)
+            if cuda:
+                torch.cuda.synchronize(trainer.device)
+        out = Path(out_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        path = out / "trace.json"
+        prof.export_chrome_trace(str(path))
     return str(path)
 
 
@@ -235,7 +249,10 @@ def profile_model(
         return measure_step_time(model_name, batch_size=batch_size, seq_len=seq_len,
                                  device=device)
 
-    measured: Dict[int, float] = {k: measure() for k in ks if k <= n_devices}
+    with get_tracer().span("profiler.profile_model", cat="profiler", model=model_name,
+                           ks=list(ks), generation=generation) as prof_sp:
+        measured: Dict[int, float] = {k: measure() for k in ks if k <= n_devices}
+        prof_sp.set(measured_ks=sorted(measured))
     synth_ks = [k for k in ks if k not in measured]
     if synth_ks and 1 not in measured:
         # the analytic extension anchors on the one-device point

@@ -66,9 +66,13 @@ def test_bench_has_no_cpu_fallback(no_cuda, capsys):
 
 
 def test_scans_cover_the_bench_and_the_card_table():
+    """The import scans below cover these files, the data, checkpoint and
+    tracer modules among them."""
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     assert {"gpuschedule_tpu_torch/bench.py", "gpuschedule_tpu_torch/cluster/cards.py",
-            "gpuschedule_tpu_torch/models/cnn.py", "chip_smoke.py"} <= names
+            "gpuschedule_tpu_torch/models/cnn.py", "gpuschedule_tpu_torch/data/loader.py",
+            "gpuschedule_tpu_torch/parallel/checkpoint.py",
+            "gpuschedule_tpu_torch/obs/tracer.py", "chip_smoke.py"} <= names
 
 
 def test_unported_options_raise(tmp_path, monkeypatch):

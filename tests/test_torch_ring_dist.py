@@ -22,7 +22,15 @@ Each rank (``tests/torch_ring_worker.py``) checks:
 5. three ``resnet-tiny`` steps over dp = 2 (each rank's two rows of images
    and labels; the sp ranks are replicas) from the JAX trainer's
    parameters: the losses agree with the JAX trainer's on the same mesh
-   within 5e-3, and the parameters after them are the same on every rank.
+   within 5e-3, and the parameters after them are the same on every rank;
+6. the cross-mesh restore: a flash step at dp = 4 with warmup, decay and
+   clip, ``save_state`` by the four ranks, ``restore_state`` onto a
+   dp = 2 x sp = 2 ring-flash trainer: every value equal (so is
+   ``reshard_state``'s move between the two meshes), the update count 1,
+   and the next step's loss, fed by ``prefetch_to_device`` (each rank's
+   rows and chunk, equal to ``to_device``'s), within rtol 2e-4 of the
+   dp = 4 trainer's next (the JAX cross-mesh test's bound; the ring merges
+   the chunks' f32 partial sums in another order).
 
 The JAX trainer's steps run in this process while the ranks run.
 """
@@ -133,6 +141,10 @@ def test_process_group_ring_and_trainer_on_four_gloo_ranks(tmp_path):
         assert f["moe_error"] is not None and "ROADMAP" in f["moe_error"]
         assert f["cnn_rows"] == [[2, 32, 32, 3], [2]]
         np.testing.assert_allclose(f["cnn_losses"], cnn_ref, atol=5e-3, rtol=0)
+        assert f["xmesh_values_equal"] and f["xmesh_count"] == 1
+        assert f["prefetch_equals_to_device"]
+        np.testing.assert_allclose(f["xmesh_loss"], f["xmesh_ref_loss"], rtol=2e-4)
+    assert (tmp_path / "xmesh_ckpt" / ".metadata").exists()
     for name in (n for n in ranks[0].files if n.startswith("cnn:")):
         for other in ranks[1:]:
             np.testing.assert_array_equal(other[name], ranks[0][name], err_msg=name)

@@ -4,7 +4,8 @@ Imports nothing of JAX (each of the four processes would pay for it).  The
 ranks meet through a ``FileStore`` under the test's ``tmp_path``, so
 parallel test workers cannot collide on a port.  Each rank writes what it
 found to ``rank<r>.json`` and its trainers' parameters after the steps to
-``rank<r>.npz`` in the output directory (the CNN's under ``cnn:``).
+``rank<r>.npz`` in the output directory (the CNN's under ``cnn:``); the
+cross-mesh checkpoint goes to ``xmesh_ckpt`` there.
 """
 
 from __future__ import annotations
@@ -25,6 +26,13 @@ from gpuschedule_tpu_torch.parallel import (
     ring_attention,
     ring_flash_attention,
 )
+from gpuschedule_tpu_torch.data import prefetch_to_device
+from gpuschedule_tpu_torch.parallel.checkpoint import (
+    reshard_state,
+    restore_state,
+    save_state,
+    state_dict,
+)
 from gpuschedule_tpu_torch.parallel.ringattn import ring_attention_in_process
 from gpuschedule_tpu_torch.parallel.ringflash import ring_flash_attention_in_process
 
@@ -37,14 +45,14 @@ def run(rank: int, store: str, data: str, out_dir: str) -> None:
     dist.init_process_group("gloo", store=dist.FileStore(store, WORLD), rank=rank,
                             world_size=WORLD)
     try:
-        found, params = _checks(np.load(data))
+        found, params = _checks(np.load(data), out_dir)
     finally:
         dist.destroy_process_group()
     np.savez(Path(out_dir, f"rank{rank}.npz"), **params)
     Path(out_dir, f"rank{rank}.json").write_text(json.dumps(found))
 
 
-def _checks(data) -> tuple:
+def _checks(data, out_dir) -> tuple:
     """What this rank found, and its trainer's parameters after the steps."""
     mesh = make_mesh(dp=2, sp=2, device="cpu")
     found = {"coords": [mesh.coordinate(a) for a in ("dp", "sp")], "rings": {}}
@@ -116,4 +124,31 @@ def _checks(data) -> tuple:
                                                                 data["labels"][0]))]
     params.update({f"cnn:{name}": p.detach().numpy()
                    for name, p in cstate.model.named_parameters()})
+
+    # 6. cross-mesh restore: one flash step at dp = 4 and a save, then a
+    # restore at dp = 2 x sp = 2 with the ring (ring-flash); the next step
+    # of each on the same batch, and the same move in memory
+    found.update(_cross_mesh(data, out_dir))
     return found, params
+
+
+def _cross_mesh(data, out_dir) -> dict:
+    tokens = data["tokens"]
+    kw = dict(batch_size=4, seq_len=64, learning_rate=3e-3, warmup_steps=1, decay_steps=4,
+              grad_clip=0.5)
+    src = ShardedTrainer("transformer-tiny", make_mesh(dp=4, device="cpu"), flash_attn=True, **kw)
+    state, _ = src.step(src.init(seed=0), src.to_device(tokens[0]))
+    path = save_state(state, Path(out_dir, "xmesh_ckpt"))
+    dst = ShardedTrainer("transformer-tiny", make_mesh(dp=2, sp=2, device="cpu"),
+                         seq_shard=True, ring_attn=True, flash_attn=True, **kw)
+    restored = restore_state(dst, path)
+    moved = reshard_state(dst, state)
+    equal = all(torch.equal(a, b) for sd in (state_dict(restored), state_dict(moved))
+                for a, b in zip(state_dict(state).values(), sd.values()))
+    count = restored.optimizer.count()
+    (fed,) = prefetch_to_device(iter([tokens[1]]), sharding=dst.batch_sharding)
+    _, ref_loss = src.step(state, src.to_device(tokens[1]))
+    _, loss = dst.step(restored, fed)
+    return {"xmesh_loss": float(loss), "xmesh_ref_loss": float(ref_loss),
+            "xmesh_values_equal": equal, "xmesh_count": count,
+            "prefetch_equals_to_device": torch.equal(fed, dst.to_device(tokens[1]))}
