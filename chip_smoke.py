@@ -25,7 +25,9 @@ Phases, each fatal on failure (exit code 1, no result line):
    sequence;
 4. kernel times — CUDA events at the transformer-long shape, beside the plain
    versions, ``F.scaled_dot_product_attention`` (a yardstick the port never
-   calls) and the least time the card could take (``bound_ms``); for the
+   calls; for K2 and K3 together SDPA's flash backward, which returns dq, dk
+   and dv in one call, from its forward's own out and lse) and the least
+   time the card could take (``bound_ms``); for the
    bf16 forward, dq and dk/dv kernels also the device time per launch from
    a ``torch.profiler`` window, beside the event time;
 5. flash train step — ``ShardedTrainer("transformer-long", batch_size=2,
@@ -70,7 +72,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    every kernel launched by both of its train steps; a ``{"bench": ...}``
    line.  Then K1, K2 and K3 against their plain versions at the
    long-context shape (B=1, S=32768, H=8, D=64, bf16, causal) within phase
-   3's bounds, timed beside their bounds and SDPA's forward; and a profiler
+   3's bounds, timed beside their bounds, SDPA's forward and SDPA's flash
+   backward; and a profiler
    window of the long-context step (where its time goes, its busy share),
    whose launches of each kernel must be LONGCTX_PER_STEP, as the
    counters' are;
@@ -137,9 +140,32 @@ Phases, each fatal on failure (exit code 1, no result line):
    logged, removed after): seconds, bytes, GB/s, each restored trainer's
    next loss within LOSS_RTOL of the unrestored one's, the memory given
    back; a ``{"ckpt": ...}`` line;
+15. tensor parallelism with ep-over-tp (``tp_phase``, run after phase 13):
+   K1-K3 at the shape a tp rank gives them (TP_SHAPE: transformer-long's 8
+   heads over tp = 2, one row a dp rank) against their plain versions
+   within phase 3's bounds, timed beside their bounds, SDPA's forward and
+   SDPA's flash backward; then TP_RANKS processes time-sliced on the one
+   card (``torch.cuda.set_device(0)`` and a gloo group each: NCCL takes one
+   rank a card, gloo stages CUDA tensors through host memory) build
+   ``make_mesh(dp=2, tp=2)`` and run TP_CELLS at the zoo's full width,
+   TP_STEPS steps each from seed 0 on the one-rank trainers' global
+   batches: transformer-long b2 x S4096 under ``flash_attn`` (K1-K3 on a
+   rank's 4 heads), transformer-moe b16 x S512 (4 of its 8 experts a rank,
+   routed over the global batch) and transformer-large b16 x S512 (8
+   heads, d_ff 3072 and vocab 4096 a rank).  Each first loss within
+   LOSS_RTOL of the one-rank trainer's (phases 5, 12 and 6, from the same
+   seed on the same batch), the losses finite and falling and the same on
+   every rank, the parameters gathered over tp the same on every rank (one
+   SHA-256 of their bytes), K1-K3 FLASH_PER_STEP a step on every rank by
+   the counters; for the MoE, block 0's slots on each rank (given the
+   one-rank model's input to it) those of the one-rank module, a flipped
+   route named with its logit gap and allowed only at a near tie.  The
+   step times carry TP_LABEL: they are not a tp speed.  A ``{"tp": ...}``
+   line;
 14. a ``{"train": ...}`` line, a ``{"kernels": [...]}`` line (the five
    kernels and the three f32 forms; K1-K3 with their launches on the MoE +
-   flash path and phase 13's path too), and last the ``{"ok": true,
+   flash path, phase 13's path and phase 15's flash cell too, and their
+   times at phase 15's shape), and last the ``{"ok": true,
    "device": {...}}`` line.
 
 Exits non-zero when CUDA is unavailable or the port cannot be imported.
@@ -230,6 +256,18 @@ DATA_BATCHES = 20      # batches of RESUME_CELL's batch x S tokens in the phase'
 STEP_RTOL = 0.03       # the prefetch-fed step's median vs phase 5's step
 CKPT_MODEL = ("transformer-large", 16, 512)  # the flagship's state for the cost
 CKPT_BYTES_PER_PARAM = 12  # f32 parameters and adamw's two f32 moments
+# phase 15: tensor parallelism with ep-over-tp, TP_RANKS processes time-sliced
+# on the one card (NCCL takes one rank a card; gloo stages CUDA tensors
+# through host memory), the zoo's full widths on a dp 2 x tp 2 mesh
+TP_RANKS = 4
+TP_STEPS = 3
+TP_SHAPE = (1, 4096, 4, 32)  # transformer-long's 8 heads over tp 2, its batch of 2 over dp 2
+# (model, global batch, seq, flash_attn)
+TP_CELLS = (("transformer-long", 2, 4096, True), ("transformer-moe", 16, 512, False),
+            ("transformer-large", 16, 512, False))
+TP_TIMEOUT_S = 420
+TP_LABEL = "4 ranks time-sliced on one card, gloo host-staged all-reduce: not a tp speed"
+ROUTE_GAP = 1e-4  # a route may differ only where the top-k logits nearly tie
 ROOT = Path(__file__).resolve().parent
 
 
@@ -700,7 +738,8 @@ def longctx_profile(torch, fa, step_ms) -> dict:
 def longctx_kernels(torch, fa, dev, ms, peaks, F) -> dict:
     """Phase 10: K1, K2 and K3 at the long-context shape against their plain
     versions (phase 3's bounds), then their event times beside the plain
-    versions', the bound and SDPA's forward at the same shape.  At this S
+    versions', the bound, SDPA's forward (K1's yardstick) and SDPA's flash
+    backward (K2's and K3's together) at the same shape.  At this S
     the outputs of late rows and the gradients of late keys are far smaller
     than the largest entries, so only the tile bound (TILE_RTOL) sees a
     fault confined to late tiles: ``scripts/longctx_fault_check.py`` plants
@@ -724,6 +763,7 @@ def longctx_kernels(torch, fa, dev, ms, peaks, F) -> dict:
     }
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     sdpa_ms = ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), 10)
+    sdpa_bwd = sdpa_backward_ms(torch, q, k, v, g, ms)
     kernels = {}
     for name, (kernel, plain) in calls.items():
         flops, nbytes = attention_cost(b, s, h, d, True, 2, name)
@@ -733,11 +773,13 @@ def longctx_kernels(torch, fa, dev, ms, peaks, F) -> dict:
         kernels[name] = {"shape": list(LONGCTX_SHAPE), "tile_rel_err": errs["tile"][name],
                          "ms": k_ms, "plain_ms": p_ms,
                          "bound_ms": bound_ms, "bound_by": bound_by,
-                         "library_ms": sdpa_ms if name == "flash_fwd" else None}
+                         "library_ms": sdpa_ms if name == "flash_fwd" else sdpa_bwd}
         log(f"time {name} {LONGCTX_SHAPE} bf16 causal: {k_ms:.4f} ms (plain {p_ms:.2f} ms, "
             f"bound {bound_ms:.4f} ms by {bound_by}, {flops / 1e9:.1f} GFLOP, "
             f"{nbytes / 1e6:.1f} MB; {k_ms / bound_ms:.2f}x the bound)")
-    log(f"time sdpa forward {LONGCTX_SHAPE} bf16 causal: {sdpa_ms:.4f} ms")
+    log(f"time sdpa forward {LONGCTX_SHAPE} bf16 causal: {sdpa_ms:.4f} ms; K2 + K3 "
+        f"{kernels['flash_bwd_dq']['ms'] + kernels['flash_bwd_dkdv']['ms']:.4f} ms vs sdpa "
+        f"flash backward (dq, dk, dv in one call) {sdpa_bwd:.4f} ms")
     return {"max_abs_err": errs["abs"], "kernels": kernels}
 
 
@@ -748,7 +790,8 @@ def f32_forms(torch, fa, dev, ms, peaks, F) -> dict:
     bit once rounded) at the ring's chunk shape, causal (a diagonal pair)
     and full (a past pair), and at two ragged shapes; then their event
     times at the chunk shape beside their plain versions, bounds (f32
-    outputs: 4 bytes an element written) and SDPA's forward."""
+    outputs: 4 bytes an element written), SDPA's forward and SDPA's flash
+    backward (bf16 outputs: the nearest library call)."""
     from gpuschedule_tpu_torch.profiler import time_callable
 
     f32, bf16 = torch.float32, torch.bfloat16
@@ -782,6 +825,7 @@ def f32_forms(torch, fa, dev, ms, peaks, F) -> dict:
                                                 out_dtype=f32)),
         }
         sdpa_ms = ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal), 10)
+        sdpa_bwd = sdpa_backward_ms(torch, q, k, v, g, ms, causal)
         pair = "diagonal" if causal else "past"
         for name, (kernel, plain) in calls.items():
             flops, nbytes = attention_cost(b, s, h, d, causal, 2, name, out_esize=4)
@@ -790,11 +834,12 @@ def f32_forms(torch, fa, dev, ms, peaks, F) -> dict:
             p_ms = time_callable(plain, iters=1, warmup=1, device=dev) * 1e3
             times[name][pair] = {"shape": list(RING_CHUNK_SHAPE), "causal": causal, "ms": k_ms,
                                  "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                                 "library_ms": sdpa_ms if name == "flash_fwd_f32" else None}
+                                 "library_ms": sdpa_ms if name == "flash_fwd_f32" else sdpa_bwd}
             log(f"time {name} {RING_CHUNK_SHAPE} bf16 in, f32 out, {pair} pair: {k_ms:.4f} ms "
                 f"(plain {p_ms:.2f} ms, bound {bound_ms:.4f} ms by {bound_by}, "
                 f"{k_ms / bound_ms:.2f}x the bound)")
-        log(f"time sdpa forward {RING_CHUNK_SHAPE} bf16 causal={causal}: {sdpa_ms:.4f} ms")
+        log(f"time sdpa forward {RING_CHUNK_SHAPE} bf16 causal={causal}: {sdpa_ms:.4f} ms; "
+            f"sdpa flash backward (dq, dk, dv in one call, bf16 out): {sdpa_bwd:.4f} ms")
     return {"max_abs_err": errs, "tile_rel_err": tiles, "times": times}
 
 
@@ -1492,6 +1537,274 @@ def ckpt_phase(torch, fa, smi, phase5_s) -> dict:
             "phase_s": time.perf_counter() - t0}
 
 
+def sdpa_backward_ms(torch, q, k, v, g, ms, causal: bool = True) -> float:
+    """ms of SDPA's flash backward (``aten._scaled_dot_product_flash_attention
+    _backward``: dq, dk and dv in one call, bf16 out) on (B, S, H, D) q, k,
+    v and the cotangent g, from its forward op's own out and lse: the
+    yardstick for K2 and K3 together, which the port never calls."""
+    qt, kt, vt, gt = (x.transpose(1, 2) for x in (q, k, v, g))
+    out, lse, cum_q, cum_k, max_q, max_k, seed, offset = \
+        torch.ops.aten._scaled_dot_product_flash_attention(qt, kt, vt, 0.0, causal)[:8]
+    return ms(lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
+        gt, qt, kt, vt, out, lse, cum_q, cum_k, max_q, max_k, 0.0, causal, seed, offset), 10)
+
+
+def _sha256(torch, tensors) -> str:
+    """The SHA-256 of the tensors' bytes, in order (a device-to-host copy)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().float().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def tp_worker(rank: int, store: str, ref_path: str, out_dir: str) -> None:
+    """Phase 15, one of TP_RANKS processes on the one card: a gloo group
+    (``all_reduce`` and ``broadcast`` of CUDA tensors staged through host
+    memory), ``make_mesh(dp=2, tp=2)``, and TP_CELLS' trainers from seed 0
+    on the one-rank trainers' global batches, TP_STEPS steps each; writes
+    ``tp<rank>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, TP_RANKS), rank=rank,
+                            world_size=TP_RANKS)
+    try:
+        found = _tp_checks(torch, dist, torch.load(ref_path))
+    finally:
+        dist.destroy_process_group()
+    Path(out_dir, f"tp{rank}.json").write_text(json.dumps(found))
+
+
+def _tp_checks(torch, dist, ref) -> dict:
+    from gpuschedule_tpu_torch.convert import unshard_state_dict
+    from gpuschedule_tpu_torch.parallel import ShardedTrainer, make_mesh
+
+    fa = importlib.import_module("gpuschedule_tpu_torch.ops.flash_attention")
+    mesh = make_mesh(dp=2, tp=2)
+    found = {"coords": [mesh.coordinate("dp"), mesh.coordinate("tp")]}
+    for model, batch, seq, flash in TP_CELLS:
+        trainer = ShardedTrainer(model, mesh, batch_size=batch, seq_len=seq, flash_attn=flash)
+        state = trainer.init(seed=0)
+        data = trainer.make_batch(seed=0)
+        cell = {"local_batch": list(data.shape)}
+        if trainer.cfg.n_experts:
+            cell["routes"] = _tp_routes(torch, trainer, state, ref)
+        torch.cuda.synchronize()
+        fa.reset_launches()                       # this cell's path starts here
+        losses, step_ms = [], []
+        for _ in range(TP_STEPS):
+            t0 = time.perf_counter()
+            state, loss = trainer.step(state, data)
+            losses.append(loss.item())            # a readback: the step is done
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        cell["launches"] = dict(fa.LAUNCHES)      # ... and ends here
+        cell.update(losses=losses, step_ms=step_ms, peak_gib=torch.cuda.max_memory_allocated()
+                    / 2**30)
+        named = dict(state.model.named_parameters())
+        whole = unshard_state_dict({n: p.detach() for n, p in named.items()}, trainer.tp)
+        cell["whole_sha256"] = _sha256(torch, whole.values())
+        cell["local_params"] = sum(p.numel() for p in named.values())
+        found[model] = cell
+        del state, trainer, data, whole, named
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    return found
+
+
+def _tp_routes(torch, trainer, state, ref) -> dict:
+    """Block 0's routes on this rank, given the one-rank model's input to
+    that block (``ref["x"]``): each token's slot at each of this rank's
+    experts (-1 where it is not there), against the one-rank module's;
+    a token whose top-k experts differ is a flip, named with the one-rank
+    router's logit gap between its k-th and (k+1)-th expert and the two
+    routers' largest logit difference on it."""
+    moe = state.model.blocks[0].moe
+    rows = slice(trainer.row0, trainer.row0 + trainer.rows)
+    x = ref["x"].to(trainer.device)[rows]
+    with torch.no_grad():
+        dispatch, _, _ = moe.route(x)
+        logits = moe.router(x.float()).reshape(-1, moe.n_experts)
+    cap = dispatch.shape[-1]
+    pos = (dispatch.float() * torch.arange(1, cap + 1, device=x.device)).sum(-1) - 1
+    t0, t1 = rows.start * x.shape[1], rows.stop * x.shape[1]
+    experts = slice(moe.e0, moe.e0 + moe.local_experts)
+    ref_pos = ref["pos"].to(x.device)[t0:t1, experts]
+    ref_logits = ref["logits"].to(x.device)[t0:t1]
+    k = moe.top_k
+    mine = logits.topk(k, dim=-1).indices.sort(dim=-1).values
+    theirs = ref_logits.topk(k, dim=-1).indices.sort(dim=-1).values
+    flips = []
+    for t in (mine != theirs).any(dim=-1).nonzero().flatten().tolist():
+        srt = ref_logits[t].sort(descending=True).values
+        flips.append({"token": t0 + t, "gap": (srt[k - 1] - srt[k]).item(),
+                      "drift": (logits[t] - ref_logits[t]).abs().max().item()})
+    return {"slots_equal": bool(torch.equal(pos, ref_pos)), "routed": int((pos >= 0).sum()),
+            "slot_differences": int((pos != ref_pos).sum()), "flips": flips,
+            "logit_drift": (logits - ref_logits).abs().max().item()}
+
+
+def tp_reference(torch) -> dict:
+    """Phase 15's reference for the MoE routes: TP_CELLS' MoE model on one
+    rank from seed 0 on its batch: block 0's MoE input, each token's slot
+    at each expert (-1 where it is not there) and the router's logits."""
+    from gpuschedule_tpu_torch.models import MODEL_CONFIGS
+    from gpuschedule_tpu_torch.parallel import ShardedTrainer
+
+    model, batch, seq, flash = next(c for c in TP_CELLS if MODEL_CONFIGS[c[0]].n_experts)
+    trainer = ShardedTrainer(model, batch_size=batch, seq_len=seq, flash_attn=flash)
+    state = trainer.init(seed=0)
+    moe = state.model.blocks[0].moe
+    grab = {}
+    hook = moe.register_forward_pre_hook(lambda mod, args: grab.setdefault("x", args[0]))
+    with torch.no_grad():
+        state.model(trainer.make_batch(seed=0))
+        hook.remove()
+        dispatch, _, _ = moe.route(grab["x"])
+        logits = moe.router(grab["x"].float()).reshape(-1, moe.n_experts)
+    cap = dispatch.shape[-1]
+    pos = (dispatch.float() * torch.arange(1, cap + 1, device=dispatch.device)).sum(-1) - 1
+    out = {"x": grab["x"].cpu(), "pos": pos.cpu(), "logits": logits.cpu()}
+    del state, trainer, dispatch, grab
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_phase(torch, fa, dev, ms, peaks, F, smi, first_losses) -> dict:
+    """Phase 15: tensor parallelism with ep-over-tp on the one card.  K1-K3
+    against their plain versions at the shape a tp rank gives them
+    (TP_SHAPE: transformer-long's 8 heads over tp = 2, one row a dp rank)
+    within phase 3's bounds, timed beside their bounds, SDPA's forward and
+    SDPA's flash backward.  Then TP_RANKS processes (:func:`tp_worker`)
+    time-sliced on the card run TP_CELLS on a dp 2 x tp 2 mesh: each first
+    loss within LOSS_RTOL of the one-rank trainer's (``first_losses``, the
+    earlier phases' steps from the same seed on the same batch), the
+    losses finite and falling, the parameters gathered over tp the same
+    on every rank (one SHA-256), K1-K3 FLASH_PER_STEP a step on every rank
+    of the flash cell by the counters, and for the MoE block 0's slots
+    those of the one-rank model given its input (a flip at a near tie is
+    named with its gap).  The step times are not a tp speed."""
+    import torch.multiprocessing as mp
+
+    from gpuschedule_tpu_torch.profiler import time_callable
+
+    t_phase = time.perf_counter()
+    b, s, h, d = TP_SHAPE
+    parity = kernel_parity(torch, fa, dev, TP_SHAPE, torch.bfloat16, True, 800)
+    gen = torch.Generator(device=dev).manual_seed(801)
+    q, k, v, g = (torch.randn(TP_SHAPE, generator=gen, device=dev).to(torch.bfloat16)
+                  for _ in range(4))
+    out, lse = fa.flash_fwd(q, k, v, causal=True)
+    delta = fa.attention_delta(out, g)
+    calls = {
+        "flash_fwd": (lambda: fa.flash_fwd(q, k, v, causal=True),
+                      lambda: fa.flash_fwd_plain(q, k, v, True)),
+        "flash_bwd_dq": (lambda: fa.flash_bwd_dq(q, k, v, g, lse, delta, causal=True),
+                         lambda: fa.flash_bwd_dq_plain(q, k, v, g, lse, delta, True)),
+        "flash_bwd_dkdv": (lambda: fa.flash_bwd_dkdv(q, k, v, g, lse, delta, causal=True),
+                           lambda: fa.flash_bwd_dkdv_plain(q, k, v, g, lse, delta, True)),
+    }
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa_fwd = ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
+    sdpa_bwd = sdpa_backward_ms(torch, q, k, v, g, ms)
+    kernels = {}
+    for name, (kernel, plain) in calls.items():
+        flops, nbytes = attention_cost(b, s, h, d, True, 2, name)
+        bound_ms, bound_by = bound(flops, nbytes, peaks)
+        kernels[name] = {"shape": list(TP_SHAPE), "max_abs_err": parity["abs"][name],
+                         "tile_rel_err": parity["tile"][name], "ms": ms(kernel),
+                         "plain_ms": time_callable(plain, iters=2, warmup=1, device=dev) * 1e3,
+                         "bound_ms": bound_ms, "bound_by": bound_by,
+                         "library_ms": sdpa_fwd if name == "flash_fwd" else sdpa_bwd}
+        log(f"time {name} {TP_SHAPE} bf16 causal (a tp rank's heads): "
+            f"{kernels[name]['ms']:.4f} ms (plain {kernels[name]['plain_ms']:.3f} ms, bound "
+            f"{bound_ms:.4f} ms by {bound_by})")
+    pair = kernels["flash_bwd_dq"]["ms"] + kernels["flash_bwd_dkdv"]["ms"]
+    log(f"time {TP_SHAPE}: sdpa forward {sdpa_fwd:.4f} ms; K2 + K3 together {pair:.4f} ms vs "
+        f"sdpa flash backward (dq, dk, dv in one call) {sdpa_bwd:.4f} ms")
+    del q, k, v, g, qt, kt, vt, out, lse, delta
+
+    ref = tp_reference(torch)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        ref_path = os.path.join(tmp, "ref.pt")
+        torch.save(ref, ref_path)
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(tp_worker, nprocs=TP_RANKS, join=False, start_method="spawn",
+                                 args=(os.path.join(tmp, "store"), ref_path, tmp))
+        deadline = time.monotonic() + TP_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=max(deadline - time.monotonic(), 0.1)):
+                check(time.monotonic() < deadline,
+                      f"the tp ranks did not finish in {TP_TIMEOUT_S} s")
+        except mp.ProcessRaisedException as e:
+            raise SmokeFailure(f"a tp rank failed: {e}") from None
+        except mp.ProcessExitedException as e:
+            raise SmokeFailure(f"a tp rank exited: {e}") from None
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.terminate()
+        ranks_s = time.perf_counter() - t0
+        found = [json.loads(Path(tmp, f"tp{r}.json").read_text()) for r in range(TP_RANKS)]
+    check(sorted(tuple(f["coords"]) for f in found) == [(0, 0), (0, 1), (1, 0), (1, 1)],
+          f"tp coordinates {[f['coords'] for f in found]}")
+    cells = {}
+    for model, batch, seq, flash in TP_CELLS:
+        per_rank = [f[model] for f in found]
+        first = per_rank[0]["losses"][0]
+        rel = abs(first - first_losses[model]) / abs(first_losses[model])
+        hashes = {c["whole_sha256"] for c in per_rank}
+        log(f"tp {model} b{batch} S{seq}{' flash' if flash else ''} on dp 2 x tp 2: losses "
+            f"{per_rank[0]['losses']} (first vs the one-rank trainer's {first_losses[model]:.6f}: "
+            f"rel {rel:.2e}, bound {LOSS_RTOL}); step ms {per_rank[0]['step_ms']} ({TP_LABEL}); "
+            f"peak {max(c['peak_gib'] for c in per_rank):.2f} GiB a rank; local batch "
+            f"{per_rank[0]['local_batch']}; the gathered parameters' digests {len(hashes)}")
+        check(all(c["losses"] == per_rank[0]["losses"] for c in per_rank),
+              f"tp {model}: the ranks' losses differ")
+        check(all(math.isfinite(x) for x in per_rank[0]["losses"])
+              and per_rank[0]["losses"][-1] < per_rank[0]["losses"][0],
+              f"tp {model}: the losses are not finite and falling: {per_rank[0]['losses']}")
+        check(rel < LOSS_RTOL, f"tp {model}: the first loss disagrees with the one-rank trainer's")
+        check(len(hashes) == 1, f"tp {model}: the gathered parameters differ between ranks")
+        cell = {"model": model, "batch": batch, "seq": seq, "flash": flash,
+                "losses": per_rank[0]["losses"], "one_rank_first_loss": first_losses[model],
+                "first_loss_rel": rel, "step_ms": [c["step_ms"] for c in per_rank],
+                "step_ms_label": TP_LABEL, "local_batch": per_rank[0]["local_batch"],
+                "local_params": [c["local_params"] for c in per_rank],
+                "peak_gib": [c["peak_gib"] for c in per_rank]}
+        if flash:
+            per_step = [{n: c["launches"][n] / TP_STEPS for n in KERNELS} for c in per_rank]
+            log(f"tp {model}: launches a step on each rank by the counters {per_step}")
+            check(all(p == FLASH_PER_STEP for p in per_step),
+                  f"tp {model}: K1-K3 launched {per_step} a step, not {FLASH_PER_STEP}")
+            cell["launches_per_step"] = per_step
+        if "routes" in per_rank[0]:
+            routes = [c["routes"] for c in per_rank]
+            flips = [fl for r in routes for fl in r["flips"]]
+            log(f"tp {model} block 0 routes on each rank against the one-rank model's: "
+                f"{json.dumps(routes)}")
+            check(all(r["routed"] > 0 for r in routes), f"tp {model}: a rank routed nothing")
+            check(all(fl["gap"] <= max(ROUTE_GAP, 2 * fl["drift"]) for fl in flips),
+                  f"tp {model}: a route differs where the top-k logits do not nearly tie: "
+                  f"{flips}")
+            check(bool(flips) or all(r["slots_equal"] for r in routes),
+                  f"tp {model}: the slots differ with no route flipped")
+            cell["routes"] = routes
+        cells[model] = cell
+    out = {"card": smi, "mesh": {"pp": 1, "dp": 2, "sp": 1, "tp": 2}, "ranks": TP_RANKS,
+           "transport": "gloo, CUDA tensors staged through host memory", "label": TP_LABEL,
+           "kernels": kernels, "cells": cells, "ranks_s": ranks_s,
+           "phase_s": time.perf_counter() - t_phase}
+    log(f"phase 15: {ranks_s:.1f} s for the ranks, {out['phase_s']:.1f} s in all")
+    return out
+
+
 def run() -> dict:
     import torch
 
@@ -1667,7 +1980,11 @@ def run() -> dict:
     o_sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
     gt = g.transpose(1, 2)
     sdpa_bwd_ms = ms(lambda: torch.autograd.grad(o_sdpa, (qt, kt, vt), gt, retain_graph=True))
-    library = {"flash_fwd": sdpa_fwd_ms, "flash_bwd_dq": None, "flash_bwd_dkdv": None}
+    # SDPA's flash backward computes dq, dk and dv in one call: the
+    # yardstick of K2 and K3 together
+    sdpa_flash_bwd_ms = sdpa_backward_ms(torch, q, k, v, g, ms)
+    library = {"flash_fwd": sdpa_fwd_ms, "flash_bwd_dq": sdpa_flash_bwd_ms,
+               "flash_bwd_dkdv": sdpa_flash_bwd_ms}
     bounds = {}
     for name in KERNELS:
         flops, nbytes = attention_cost(b, s, h, d, True, 2, name)
@@ -1702,7 +2019,8 @@ def run() -> dict:
     bwd_bound = bounds["flash_bwd_dq"][0] + bounds["flash_bwd_dkdv"][0]
     log(f"time sdpa forward {sdpa_fwd_ms:.4f} ms; K2+K3 {bwd_ms:.4f} ms "
         f"(plain {times['flash_bwd_dq'][1] + times['flash_bwd_dkdv'][1]:.4f} ms, "
-        f"bound {bwd_bound:.4f} ms) vs sdpa backward {sdpa_bwd_ms:.4f} ms")
+        f"bound {bwd_bound:.4f} ms) vs sdpa backward {sdpa_bwd_ms:.4f} ms (autograd), "
+        f"sdpa flash backward {sdpa_flash_bwd_ms:.4f} ms (dq, dk, dv in one call)")
     del q, k, v, g, qt, kt, vt, o_sdpa, out, lse, delta
 
     # ---------------------------------------------------------------- 5 --
@@ -1829,6 +2147,14 @@ def run() -> dict:
     ckpt = ckpt_phase(torch, fa, smi, step_s)
     print(json.dumps({"ckpt": ckpt}))
 
+    # --------------------------------------------------------------- 15 --
+    first_losses = {"transformer-long": losses[0], "transformer-large": dense_losses[0],
+                    "transformer-moe": zoo["cells"]["transformer-moe"]["losses"][0]}
+    tp = tp_phase(torch, fa, dev, ms, peaks, F, smi, first_losses)
+    for name, kern in tp["kernels"].items():
+        errs[name] = max(errs[name], kern["max_abs_err"])
+    print(json.dumps({"tp": tp}))
+
     # --------------------------------------------------------------- 14 --
     train = {
         "card": smi, "build_s": build_s,
@@ -1846,7 +2172,7 @@ def run() -> dict:
         "build": build_report, "device_ms_per_launch": device_ms,
         "backward": {"ms": bwd_ms, "bound_ms": bwd_bound,
                      "plain_ms": times["flash_bwd_dq"][1] + times["flash_bwd_dkdv"][1],
-                     "library_ms": sdpa_bwd_ms},
+                     "library_ms": sdpa_bwd_ms, "sdpa_flash_backward_ms": sdpa_flash_bwd_ms},
     }
     kernels = [
         {"name": cname, "f32_kernel": f32_name, "route": "cuda", "source": SOURCE,
@@ -1856,7 +2182,11 @@ def run() -> dict:
          "library_ms": library[name], "launches_bench": bench_launches[name],
          "launches_moe_flash": zoo["moe_flash"]["launches"][name],
          "launches_ckpt": ckpt["in_process"]["launches"][name],
-         "longctx": longctx["kernels"][name]}
+         "launches_tp_per_step_a_rank":
+             tp["cells"]["transformer-long"]["launches_per_step"][0][name],
+         "longctx": longctx["kernels"][name], "tp_shape": tp["kernels"][name],
+         **({} if name == "flash_fwd" else {
+             "library": "SDPA's flash backward: dq, dk and dv in one call, K2 and K3 together"})}
         for name, (cname, f32_name, replaces) in KERNELS.items()
     ] + [
         {"name": cname, "route": "cuda", "source": PROBE_SOURCE, "replaces": replaces,

@@ -2,7 +2,7 @@
 
 Counterparts of the JAX package's subcommands:
 
-- ``train`` builds a dp x sp mesh and the trainer over it, feeds it from a
+- ``train`` builds a dp x sp x tp mesh and the trainer over it, feeds it from a
   token file (``--data``, ``--data-dtype``, ``--host-shard``) or
   :func:`synthetic_lm_batches` through ``prefetch_to_device(size=2)``,
   optionally restores from (``--restore``) and saves to (``--ckpt``) a
@@ -13,18 +13,21 @@ Counterparts of the JAX package's subcommands:
   are the same, and so is the datastream sidecar ``<ckpt>.datastream.json``
   (rank 0 writes it) with the stderr warning when a resumed run's stream
   differs from it.  With the tracer on (``GSTPU_TRACE=1``) the spans'
-  summary goes to stderr as ``{"spans": ...}``.  ``--sp``, ``--devices``
-  and ``--ring-attn`` mean what they mean there; the ranks come from the
-  launcher (``torchrun --nproc-per-node N -m gpuschedule_tpu_torch
-  train``), one a device, and rank 0 prints the line.  Without a launcher
-  it runs on one device.  ``--tp`` above 1 is not ported yet
-  (ROADMAP.md).  It trains the dense and MoE LMs; a CNN exits with the
-  JAX CLI's message (image models are profile-only there too).
+  summary goes to stderr as ``{"spans": ...}``.  ``--sp``, ``--tp``,
+  ``--devices`` and ``--ring-attn`` mean what they mean there; the ranks
+  come from the launcher (``torchrun --nproc-per-node N -m
+  gpuschedule_tpu_torch train``), one a device, and rank 0 prints the
+  line.  Without a launcher it runs on one device.  It trains the dense
+  and MoE LMs; a CNN exits with the JAX CLI's message (image models are
+  profile-only there too).
 - ``profile`` measures each ``--model``'s step (any zoo model), fits its goodput curve into
   the ``--curves`` JSON that the simulator's Optimus policy reads
   (``gpuschedule_tpu run --policy optimus --curves``), and prints
   ``{"model", "theta"}`` per model, then ``{"model", "trace"}`` when
-  ``--trace-dir`` is given.
+  ``--trace-dir`` is given.  Under a launcher every k up to the world's
+  ranks is measured on a mesh of the first k ranks (``--sp``/``--tp``
+  set its replica, ``model@sp{sp}tp{tp}`` its cache key), and rank 0
+  prints and writes the curves.  ``--pp`` above 1 is not ported yet.
 """
 
 from __future__ import annotations
@@ -61,9 +64,6 @@ def join_launcher_group(device) -> bool:
 def cmd_train(args) -> int:
     if args.steps < 1:
         raise SystemExit("--steps must be >= 1")
-    if args.tp > 1:
-        raise SystemExit(f"--tp {args.tp}: tensor parallelism is not ported yet (ROADMAP.md, "
-                         "Queue 1 item 2)")
     try:
         joined = join_launcher_group(args.device)
     except RuntimeError as e:
@@ -265,13 +265,24 @@ def _train(args) -> int:
 
 def cmd_profile(args) -> int:
     from gpuschedule_tpu_torch import resolve_device
-    from gpuschedule_tpu_torch.profiler import CurveCache, capture_trace, profile_model
 
     try:
         device = resolve_device(args.device)
         ks = tuple(int(k) for k in args.ks.split(","))
+        joined = join_launcher_group(device)
     except (ValueError, RuntimeError) as e:
         raise SystemExit(str(e))
+    try:
+        return _profile(args, device, ks)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _profile(args, device, ks) -> int:
+    from gpuschedule_tpu_torch.profiler import CurveCache, capture_trace, profile_model
+
+    rank0 = not dist.is_initialized() or dist.get_rank() == 0
     cache = CurveCache(args.curves)
     for model in args.model:
         try:
@@ -282,11 +293,13 @@ def cmd_profile(args) -> int:
             )
         except (ValueError, NotImplementedError) as e:
             raise SystemExit(str(e))
-        print(json.dumps({"model": model, "theta": list(curve.theta)}))
+        if rank0:
+            print(json.dumps({"model": model, "theta": list(curve.theta)}))
         if args.trace_dir:
             path = capture_trace(model, f"{args.trace_dir}/{model}", batch_size=args.batch_size,
-                                 seq_len=args.seq_len, device=device)
-            print(json.dumps({"model": model, "trace": path}))
+                                 seq_len=args.seq_len, sp=args.sp, tp=args.tp, device=device)
+            if rank0:
+                print(json.dumps({"model": model, "trace": path}))
     return 0
 
 
@@ -306,7 +319,8 @@ def build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--grad-clip", type=float, default=None,
                     help="global-norm gradient clipping threshold")
     tr.add_argument("--sp", type=int, default=1)
-    tr.add_argument("--tp", type=int, default=1, help="not ported: must be 1")
+    tr.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel ranks (megatron splits, the MoE's experts over tp)")
     tr.add_argument("--devices", type=int,
                     help="the mesh's devices, one a rank: must be the launcher's world "
                          "size (default: the world)")
@@ -336,8 +350,9 @@ def build_parser() -> argparse.ArgumentParser:
                       help="TPU generation whose ICI/DCN model extends the measured step")
     prof.add_argument("--batch-size", type=int, default=8)
     prof.add_argument("--seq-len", type=int, default=128)
-    prof.add_argument("--sp", type=int, default=1, help="not ported: must be 1")
-    prof.add_argument("--tp", type=int, default=1, help="not ported: must be 1")
+    prof.add_argument("--sp", type=int, default=1,
+                      help="sequence-parallel ranks of a measured replica (the dense ring)")
+    prof.add_argument("--tp", type=int, default=1, help="tensor-parallel ranks of a measured replica")
     prof.add_argument("--pp", type=int, default=1, help="not ported: must be 1")
     prof.add_argument("--curves", required=True)
     prof.add_argument("--trace-dir", help="also write a torch.profiler Chrome trace of the step here")

@@ -14,11 +14,15 @@ arrive as numpy (``jax.device_get`` of the tree); nothing here imports JAX.
 in the middle of training: adamw's moments map by the same paths, and the
 counts become adamw's step and the schedule's position, in the flat form
 of ``parallel/checkpoint.py``'s ``state_dict``.
+
+Over tp both take the rank's :class:`~gpuschedule_tpu_torch.parallel.tp.Tp`
+and give its shards (the partition table's slices);
+:func:`unshard_state_dict` puts the shards of a tp-split ``state_dict``
+back together on every tp rank.
 """
 
 from __future__ import annotations
 
-import re
 from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
@@ -27,6 +31,7 @@ import torch
 from gpuschedule_tpu_torch.models.cnn import ResNet
 from gpuschedule_tpu_torch.models.config import CnnConfig, ModelConfig
 from gpuschedule_tpu_torch.models.transformer import TransformerLM
+from gpuschedule_tpu_torch.parallel.tp import NO_TP, Tp, flax_path, param_partition_spec
 
 
 def _get(tree: Mapping, path) -> np.ndarray:
@@ -36,25 +41,40 @@ def _get(tree: Mapping, path) -> np.ndarray:
     return np.asarray(node)
 
 
-def params_from_jax(params: Mapping, cfg: "ModelConfig | CnnConfig") -> Dict[str, torch.Tensor]:
+def params_from_jax(params: Mapping, cfg: "ModelConfig | CnnConfig",
+                    tp: Tp = NO_TP) -> Dict[str, torch.Tensor]:
     """The state_dict of ``cfg``'s module (a ``TransformerLM``, dense or
     MoE, or a ``ResNet``) holding the flax parameters ``params`` (the
-    ``"params"`` collection, or the dict that wraps it).  Raises
-    ``KeyError`` naming the flax path of any missing leaf.  ``cfg`` may be
-    the JAX package's config of the same model: a config with ``channels``
-    is a CNN's."""
+    ``"params"`` collection, or the dict that wraps it): over ``tp``, this
+    rank's shard of each.  Raises ``KeyError`` naming the flax path of any
+    missing leaf.  ``cfg`` may be the JAX package's config of the same
+    model: a config with ``channels`` is a CNN's."""
     if "params" in params:
         params = params["params"]
     with torch.device("meta"):
         module = ResNet(cfg) if hasattr(cfg, "channels") else TransformerLM(cfg)
     out: Dict[str, torch.Tensor] = {}
     for name in module.state_dict():
-        flax_path = re.sub(r"^blocks\.(\d+)\.", r"block\1.", name).split(".")
+        path = flax_path(name)
         try:
-            arr = _get(params, flax_path)
+            arr = _get(params, path)
         except KeyError:
-            raise KeyError(f"flax parameter {'/'.join(flax_path)} is missing") from None
-        out[name] = torch.from_numpy(np.array(arr, dtype=np.float32))
+            raise KeyError(f"flax parameter {'/'.join(path)} is missing") from None
+        full = torch.from_numpy(np.array(arr, dtype=np.float32))
+        dim = param_partition_spec(name, full.dim()) if tp.size > 1 else None
+        out[name] = tp.shard(full, dim).contiguous()
+    return out
+
+
+def unshard_state_dict(sd: Mapping[str, torch.Tensor], tp: Tp) -> Dict[str, torch.Tensor]:
+    """The whole parameters of a tp-split model's ``state_dict`` (or of
+    adamw moments named as their parameters): each split entry gathered
+    over ``tp`` (:meth:`Tp.gather`, a collective: every tp rank calls it),
+    the replicated ones as they are."""
+    out = {}
+    for name, t in sd.items():
+        dim = param_partition_spec(name, t.dim()) if tp.size > 1 else None
+        out[name] = tp.gather(t, dim)
     return out
 
 
@@ -73,7 +93,8 @@ def _optax_parts(opt_state) -> Tuple[object, bool, Optional[object]]:
     return adam, clipped, (rate if "count" in getattr(rate, "_fields", ()) else None)
 
 
-def opt_state_from_jax(opt_state, cfg: "ModelConfig | CnnConfig") -> Dict[str, torch.Tensor]:
+def opt_state_from_jax(opt_state, cfg: "ModelConfig | CnnConfig",
+                       tp: Tp = NO_TP) -> Dict[str, torch.Tensor]:
     """The ``optimizer.*`` entries of a checkpoint's dict
     (``parallel.checkpoint.state_dict``) holding optax adamw's ``opt_state``
     (the JAX ``make_optimizer``'s, any of its four forms): each
@@ -83,9 +104,9 @@ def opt_state_from_jax(opt_state, cfg: "ModelConfig | CnnConfig") -> Dict[str, t
     ``optimizer.count``; whether a clip and a schedule are in the chain as
     ``optimizer.grad_clip`` and ``optimizer.schedule``.  With the
     parameters (``model.`` + :func:`params_from_jax`) it loads into a
-    trainer with ``load_state_dict``."""
+    trainer with ``load_state_dict``; over ``tp``, this rank's shards."""
     adam, clipped, sched = _optax_parts(opt_state)
-    mu, nu = params_from_jax(adam.mu, cfg), params_from_jax(adam.nu, cfg)
+    mu, nu = params_from_jax(adam.mu, cfg, tp), params_from_jax(adam.nu, cfg, tp)
     step = float(np.asarray(adam.count))
     out: Dict[str, torch.Tensor] = {}
     for name in mu:

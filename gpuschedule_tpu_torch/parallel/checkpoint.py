@@ -24,12 +24,16 @@ A checkpoint holds one flat dict of tensors (:func:`state_dict`):
   warmup and decay lengths, the clip's threshold) come from the target
   trainer, as they do there.
 
-Over a dp x sp mesh every rank holds the whole state (each rank inits the
-full model and the gradients are all-reduced), so any such layout restores
-onto any other: the target trainer builds its own state and the values are
-copied in.  Over several ranks ``torch.distributed.checkpoint`` gathers the
-ranks' plans on the default group and writes each replicated tensor once.
-A tp (or ep-over-tp) layout is not ported and raises.
+Any dp x sp x tp layout restores onto any other: the target trainer
+builds its own state and the values are loaded into it.  Over a dp x sp
+mesh every rank holds the whole state.  Over tp a split parameter and its
+moments are entered as ``DTensor``s of the rank's shard (``Shard`` on the
+partition table's dim over the mesh's tp axis, replicated over the
+others), so the checkpoint holds each whole tensor at its global shape
+and ``torch.distributed.checkpoint`` reads into each target shard just
+its slice, whatever layout wrote it.  Over several ranks it gathers the
+ranks' plans on the default group and writes each replicated tensor (and
+each shard) once.  A pp layout is not ported and raises.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ from typing import Dict
 import torch
 import torch.distributed as dist
 
+from gpuschedule_tpu_torch.parallel.tp import NO_TP, Tp, param_partition_spec
 from gpuschedule_tpu_torch.parallel.train import Optimizer, TrainState
 
 __all__ = ["save_state", "restore_state", "reshard_state", "state_dict", "load_state_dict"]
@@ -74,12 +79,59 @@ def _one_process_quietly():
 
 
 def _check_layout(trainer) -> None:
-    tp, pp = trainer.mesh.shape["tp"], trainer.mesh.shape["pp"]
-    if tp > 1 or pp > 1:
+    pp = trainer.mesh.shape["pp"]
+    if pp > 1:
         raise NotImplementedError(
-            f"tp={tp} pp={pp}: checkpoints of a tp (or ep-over-tp) or pp layout are not "
-            "ported; they wait for tensor parallelism (ROADMAP.md, Queue 1 item 2)"
+            f"pp={pp}: checkpoints of a pp layout are not ported; they wait for the "
+            "pipeline (ROADMAP.md, Queue 1)"
         )
+
+
+def _split(state: TrainState):
+    """``name -> wrap`` for the model's parameters: over tp a split one's
+    local tensor (the parameter or a moment) becomes a ``DTensor`` of
+    the whole (``Shard`` on its dim over the tp axis), a replicated one
+    stays as it is.  The ``DTensor`` is a view: loading into it loads the
+    rank's own tensor."""
+    tp = getattr(state.model, "tp", NO_TP)
+    if tp.size == 1:
+        return lambda name, t: t
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    device_mesh = state.mesh.device_mesh
+
+    def wrap(name, t):
+        dim = param_partition_spec(name, t.dim())
+        if dim is None:
+            return t
+        placements = [Replicate()] * (device_mesh.ndim - 1) + [Shard(dim)]
+        return DTensor.from_local(t, device_mesh, placements, run_check=False)
+    return wrap
+
+
+def _shards(t: torch.Tensor):
+    """(the tp of a ``DTensor`` that :func:`_split` made, its split dim),
+    or None for a plain tensor."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(t, DTensor):
+        return None
+    mesh = t.device_mesh
+    tp = Tp(mesh.size(mesh.ndim - 1), mesh.get_local_rank("tp"), mesh.get_group("tp"))
+    return tp, t.placements[-1].dim
+
+
+def _copy_into(target: torch.Tensor, source: torch.Tensor) -> None:
+    """Copy ``source`` into ``target``, either a plain tensor or a split
+    one of :func:`_split`: a split source is gathered over its tp (every
+    rank calls this, in one order), a split target takes its slice."""
+    src = _shards(source)
+    whole = source if src is None else src[0].gather(source.to_local(), src[1])
+    dst = _shards(target)
+    if dst is None:
+        target.copy_(whole)
+    else:
+        target.to_local().copy_(dst[0].shard(whole, dst[1]))
 
 
 def _flags(opt: Optimizer) -> Dict[str, int]:
@@ -105,7 +157,9 @@ def state_dict(state: TrainState, *, materialize: bool = False) -> Dict[str, tor
     they too are loaded in place."""
     model, opt = state.model, state.optimizer
     adamw = opt.adamw
-    out: Dict[str, torch.Tensor] = {f"model.{k}": v for k, v in model.state_dict().items()}
+    wrap = _split(state)
+    out: Dict[str, torch.Tensor] = {f"model.{k}": wrap(k, v)
+                                    for k, v in model.state_dict().items()}
     for name, p in model.named_parameters():
         st = adamw.state.get(p)
         if not st:
@@ -113,8 +167,9 @@ def state_dict(state: TrainState, *, materialize: bool = False) -> Dict[str, tor
                   "exp_avg_sq": torch.zeros_like(p)}
             if materialize:
                 adamw.state[p] = st
-        for key in ("exp_avg", "exp_avg_sq", "step"):
-            out[f"optimizer.{name}.{key}"] = st[key]
+        for key in ("exp_avg", "exp_avg_sq"):
+            out[f"optimizer.{name}.{key}"] = wrap(name, st[key])
+        out[f"optimizer.{name}.step"] = st["step"]
     out["optimizer.count"] = torch.tensor(opt.schedule.last_epoch, dtype=torch.int64)
     out.update({f"optimizer.{k}": torch.tensor(v, dtype=torch.int64)
                 for k, v in _flags(opt).items()})
@@ -154,7 +209,7 @@ def load_state_dict(trainer, sd: Dict[str, torch.Tensor]) -> TrainState:
     _check_structure(template, {k: tuple(v.shape) for k, v in sd.items()}, "the state")
     with torch.no_grad():
         for k, t in template.items():
-            t.copy_(sd[k])
+            _copy_into(t, sd[k])
     return _finish(state, template, "the state")
 
 
@@ -190,7 +245,8 @@ def save_state(state: TrainState, path, *, overwrite: bool = True) -> str:
 
 def restore_state(trainer, path) -> TrainState:
     """Read the checkpoint at ``path`` onto ``trainer``: a new state on its
-    device and mesh (any dp x sp factorisation; the trainer's step then
+    device and mesh (any dp x sp x tp factorisation, each rank reading its
+    own shards; the trainer's step then
     drops the graphs of its old state and captures anew).  The checkpoint's
     keys and shapes are held to the target's before anything is read;
     a mismatch raises ``ValueError``, as does a different ``grad_clip`` or
@@ -214,6 +270,7 @@ def restore_state(trainer, path) -> TrainState:
 
 def reshard_state(trainer, state: TrainState) -> TrainState:
     """The same move as :func:`restore_state` with no filesystem: ``state``
-    (from a trainer with another dp x sp factorisation, or on another
-    device) copied into a new state on ``trainer``."""
+    (from a trainer with another dp x sp x tp factorisation, or on another
+    device) copied into a new state on ``trainer``; over tp a collective,
+    which every rank calls."""
     return load_state_dict(trainer, state_dict(state))

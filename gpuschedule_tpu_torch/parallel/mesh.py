@@ -11,14 +11,21 @@ started one.  A mesh of one rank needs no launcher and no process group,
 as the JAX function works on one device.
 
 The mesh spans the whole world: JAX can lay a mesh over any subset of the
-devices one program sees, but here every rank is its own program and a
-``DeviceMesh`` covers every rank, so a mesh whose size is not the world's
-raises.
+devices one program sees, but here every rank is its own program, so a
+mesh whose size is not the world's raises.  The profiler measures
+smaller meshes: :func:`sub_mesh` lays one over the first k ranks, every
+rank building its groups and the ranks outside it getting None.
+
+Besides the axes' groups a mesh of several ranks has a *data group*:
+the dp x sp ranks that share this rank's tp coordinate, over which the
+gradients, the loss and the MoE's token counts are summed (the tp ranks
+hold shards of one model, not replicas).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+import math
 from typing import Dict, Optional
 
 import torch
@@ -38,6 +45,12 @@ class Mesh:
     shape: Dict[str, int]
     device: torch.device
     device_mesh: Optional[object] = None  # torch.distributed.device_mesh.DeviceMesh
+    data_group: Optional[object] = None   # this rank's dp x sp ranks (one tp coordinate)
+
+    @property
+    def size(self) -> int:
+        """The mesh's ranks."""
+        return math.prod(self.shape.values())
 
     def group(self, axis: str):
         """The process group of this rank's line along ``axis``."""
@@ -91,12 +104,40 @@ def make_mesh(
             f"a mesh of {n} devices in a world of {world} ranks: the mesh spans every rank, "
             f"one device each (launch {n} ranks, e.g. torchrun --nproc-per-node {n})"
         )
+    return _build(n, (pp, dp, sp, tp), device)
+
+
+def sub_mesh(n: int, *, dp: int, sp: int = 1, tp: int = 1, pp: int = 1, device=None):
+    """A ``(pp, dp, sp, tp)`` mesh over the first ``n`` ranks of the world.
+    Every rank calls it, in the same order as every other group it builds
+    (each group is made by every rank of the world); the ranks outside
+    the mesh get None."""
+    if pp * dp * sp * tp != n or n > world_size():
+        raise ValueError(f"pp*dp*sp*tp={pp * dp * sp * tp} over the first {n} of "
+                         f"{world_size()} ranks")
+    return _build(n, (pp, dp, sp, tp), device)
+
+
+def _build(n: int, sizes, device) -> Optional[Mesh]:
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
-    shape = dict(zip(AXES, (pp, dp, sp, tp)))
+    shape = dict(zip(AXES, sizes))
     if not (dist.is_available() and dist.is_initialized()):
         return Mesh(shape, dev)  # one rank, no launcher: no groups to build
-    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
-    return Mesh(shape, dev, init_device_mesh(dev.type, (pp, dp, sp, tp), mesh_dim_names=AXES))
+    world = world_size()
+    ranks = torch.arange(n).reshape(sizes)
+    device_mesh = (init_device_mesh(dev.type, sizes, mesh_dim_names=AXES) if n == world
+                   else DeviceMesh(dev.type, ranks, mesh_dim_names=AXES))
+    me, data_group = dist.get_rank(), None
+    for p in range(sizes[0]):
+        for t in range(sizes[3]):
+            members = ranks[p, :, :, t].flatten().tolist()
+            group = dist.group.WORLD if len(members) == world else dist.new_group(members)
+            if me in members:
+                data_group = group
+    if me >= n:
+        return None
+    return Mesh(shape, dev, device_mesh, data_group)

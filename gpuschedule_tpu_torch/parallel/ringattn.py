@@ -25,6 +25,9 @@ ring here is one of two exchanges (:class:`ProcessRing`,
   hands rank r's chunks to rank r + 1 in a list.  It is the counterpart of
   a JAX sp mesh whose devices all live in one program, and how one card
   runs the ring.
+
+Over tp a rank's q, k and v hold its H/tp heads, and the ring runs on them
+alone: all the math is per head, as in the JAX rings' ``head_axis``.
 """
 
 from __future__ import annotations

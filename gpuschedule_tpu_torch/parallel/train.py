@@ -1,4 +1,4 @@
-"""The train step: the framework's unit of measured work, over a dp x sp mesh.
+"""The train step: the framework's unit of measured work, over a dp x sp x tp mesh.
 
 Counterpart of ``gpuschedule_tpu/parallel/train.py`` (``make_optimizer`` and
 ``ShardedTrainer``).  The JAX trainer shards one jitted step over a mesh
@@ -8,16 +8,26 @@ with named shardings; this one runs one rank of a :class:`Mesh` a process.
 - **sp**: with ``seq_shard`` (which ``ring_attn`` needs) each rank takes its
   chunk of the sequence, and the ring (``ring_attention``, or
   ``ring_flash_attention`` with ``flash_attn``) attends across the chunks.
+- **tp**: the model splits over the tp ranks by the JAX partition table
+  (:func:`~gpuschedule_tpu_torch.parallel.tp.param_partition_spec`):
+  megatron's column and row splits with the collectives of
+  :mod:`.tp`, the attention core (the flash kernels, or a ring) on the
+  rank's H/tp heads, the logits the rank's slice of the vocab and the
+  loss vocab-parallel, the MoE's experts split over tp (ep-over-tp).
 - The loss is the rank's sum over the global count B·(S − 1) and the
-  gradients are summed over the world (``all_reduce``): together the JAX
-  step's mean and psum.
-- **tp** and **pp** are not ported (``NotImplementedError``, ROADMAP.md).
+  gradients are summed over the mesh's data group, the dp x sp ranks of
+  this rank's tp coordinate (``all_reduce``): together the JAX step's mean
+  and psum.  The global-norm clip sums the split parameters' squares over
+  tp and counts each replicated parameter once.
+- **pp** is not ported (``NotImplementedError``, ROADMAP.md).
 
 The three model families of the zoo train here: the dense LM; the MoE LM,
-whose blocks' aux losses are charged at ``moe_aux_weight`` (on one rank
-only: the JAX module routes over the global batch); and the CNN, whose
-batch is an ``(images, labels)`` pair and whose loss is the softmax
-cross-entropy over integer labels.
+whose blocks' aux losses are charged at ``moe_aux_weight`` and which over
+several ranks routes the global batch, as the JAX module does under GSPMD
+(:class:`~gpuschedule_tpu_torch.parallel.tp.TokenLayout`); and the CNN,
+whose batch is an ``(images, labels)`` pair and whose loss is the softmax
+cross-entropy over integer labels (its tp ranks hold replicas: the table
+splits none of its parameters).
 
 On one rank and on the card the step is one captured program, as the JAX
 step is one ``jit`` program: forward, backward, clip and adamw replay as
@@ -47,7 +57,14 @@ from gpuschedule_tpu_torch.models.config import CnnConfig
 from gpuschedule_tpu_torch.models.transformer import build_model, model_config
 from gpuschedule_tpu_torch.obs.tracer import get_tracer
 from gpuschedule_tpu_torch.ops import launches
-from gpuschedule_tpu_torch.parallel.mesh import Mesh, make_mesh, world_size
+from gpuschedule_tpu_torch.parallel.mesh import Mesh, make_mesh
+from gpuschedule_tpu_torch.parallel.tp import (
+    NO_TP,
+    TokenLayout,
+    Tp,
+    param_partition_spec,
+    vocab_parallel_loss,
+)
 
 ADAMW_WEIGHT_DECAY = 1e-4  # optax.adamw's default
 
@@ -67,13 +84,22 @@ def lr_factor(count: int, *, warmup_steps: int = 0, decay_steps: Optional[int] =
     return 1.0
 
 
-def clip_by_global_norm(params: Iterable[torch.nn.Parameter], max_norm: float) -> torch.Tensor:
+def clip_by_global_norm(params: Iterable[torch.nn.Parameter], max_norm: float,
+                        tp: Tp = NO_TP, sharded: frozenset = frozenset()) -> torch.Tensor:
     """Scale all gradients by ``max_norm / norm`` when their global norm
-    reaches ``max_norm`` (``optax.clip_by_global_norm``).  Returns the norm."""
-    grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(g.float()) for g in grads])
-    )
+    reaches ``max_norm`` (``optax.clip_by_global_norm``).  Returns the norm.
+    Over tp the norm is the whole model's: the squares of the split
+    parameters (``sharded``, their ids) summed over ``tp``, each
+    replicated parameter counted once."""
+    params = [p for p in params if p.grad is not None]
+    grads = [p.grad for p in params]
+    norms = [torch.linalg.vector_norm(p.grad.float()) for p in params if id(p) not in sharded]
+    split = [torch.linalg.vector_norm(p.grad.float()) for p in params if id(p) in sharded]
+    if split:
+        sq = torch.stack(split).square().sum()
+        dist.all_reduce(sq, group=tp.group)
+        norms.append(sq.sqrt())
+    norm = torch.linalg.vector_norm(torch.stack(norms))
     factor = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     torch._foreach_mul_(grads, factor)
     return norm
@@ -87,13 +113,15 @@ class Optimizer:
     schedule: torch.optim.lr_scheduler.LambdaLR
     grad_clip: Optional[float]
     scheduled: bool = False  # a warmup or a decay: optax's scale_by_schedule (it has a count)
+    tp: Tp = NO_TP
+    sharded: frozenset = frozenset()  # ids of the parameters split over tp
 
     def update(self) -> None:
         """Clip and adamw: the part of :meth:`step` that runs on the device
         alone, so a CUDA graph can hold it."""
         if self.grad_clip is not None:
             params = [p for g in self.adamw.param_groups for p in g["params"]]
-            clip_by_global_norm(params, self.grad_clip)
+            clip_by_global_norm(params, self.grad_clip, self.tp, self.sharded)
         self.adamw.step()
 
     def step(self) -> None:
@@ -135,6 +163,8 @@ def make_optimizer(
     decay_steps: Optional[int] = None,
     grad_clip: Optional[float] = None,
     capturable: Optional[bool] = None,
+    tp: Tp = NO_TP,
+    sharded: Iterable[torch.nn.Parameter] = (),
 ) -> Optimizer:
     """adamw with linear warmup over ``warmup_steps``, cosine decay to zero
     over ``decay_steps`` (counted after warmup) and global-norm clipping at
@@ -150,7 +180,8 @@ def make_optimizer(
     base rate stays a Python float (``initial_lr``), so computing the next
     rate reads nothing back from the device.  Otherwise the optimizer is
     the multi-tensor adamw with a Python rate, the form the CPU parity
-    tests hold against optax."""
+    tests hold against optax.  ``sharded`` are the parameters split over
+    ``tp``, which the clip's norm sums over tp."""
     params = list(params)
     if capturable is None:
         capturable = params[0].is_cuda
@@ -165,16 +196,17 @@ def make_optimizer(
     sched = torch.optim.lr_scheduler.LambdaLR(
         adamw, partial(lr_factor, warmup_steps=warmup_steps, decay_steps=decay_steps)
     )
-    return Optimizer(adamw, sched, grad_clip, scheduled=bool(warmup_steps or decay_steps))
+    return Optimizer(adamw, sched, grad_clip, scheduled=bool(warmup_steps or decay_steps),
+                     tp=tp, sharded=frozenset(id(p) for p in sharded))
 
 
-def _all_reduce_grads(model: torch.nn.Module) -> None:
-    """Sum every parameter's gradient over the world in one flat all-reduce
+def _all_reduce_grads(model: torch.nn.Module, group) -> None:
+    """Sum every parameter's gradient over ``group`` in one flat all-reduce
     (a parameter without one counts as zeros)."""
     params = list(model.parameters())
     grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
     flat = torch.cat([g.reshape(-1) for g in grads])
-    dist.all_reduce(flat)
+    dist.all_reduce(flat, group=group)
     offset = 0
     for p, g in zip(params, grads):
         p.grad = flat[offset:offset + g.numel()].view_as(g)
@@ -183,10 +215,12 @@ def _all_reduce_grads(model: torch.nn.Module) -> None:
 
 @dataclass
 class TrainState:
-    """What the JAX trainer carries as ``(params, opt_state)``."""
+    """What the JAX trainer carries as ``(params, opt_state)``, and the mesh
+    its shards lie on (None: the whole state on one rank)."""
 
     model: torch.nn.Module
     optimizer: Optimizer
+    mesh: Optional[Mesh] = None
 
 
 Batch = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
@@ -221,8 +255,8 @@ class ShardedTrainer:
     to :func:`make_mesh` over the world (one rank: the mesh of size 1 on
     ``device``, the card unless ``device="cpu"``).  ``flash_attn`` puts the
     CUDA flash kernels (:func:`~gpuschedule_tpu_torch.ops.flash_attention`)
-    in every block; ``ring_attn`` the sp ring, the two together the
-    ring-flash composition.  ``batch_size`` and ``seq_len`` are global
+    in every block, on the rank's H/tp heads; ``ring_attn`` the sp ring,
+    the two together the ring-flash composition.  ``batch_size`` and ``seq_len`` are global
     (``seq_len`` means nothing to a CNN).  ``moe_aux_weight`` weighs the
     MoE blocks' aux losses in the loss, as in the JAX trainer."""
 
@@ -247,10 +281,10 @@ class ShardedTrainer:
             mesh = make_mesh(device=device)
         elif device is not None and torch.device(device).type != mesh.device.type:
             raise ValueError(f"device {device!r} is not the mesh's {mesh.device}")
-        if mesh.shape["tp"] > 1 or mesh.shape["pp"] > 1:
+        if mesh.shape["pp"] > 1:
             raise NotImplementedError(
-                f"tp={mesh.shape['tp']} pp={mesh.shape['pp']}: only dp and sp meshes are "
-                "ported; tensor and pipeline parallelism are queued in ROADMAP.md"
+                f"pp={mesh.shape['pp']}: only dp, sp and tp meshes are ported; pipeline "
+                "parallelism is queued in ROADMAP.md"
             )
         attn_fn: Optional[Callable] = None
         if ring_attn and flash_attn:
@@ -287,12 +321,6 @@ class ShardedTrainer:
             raise ValueError(f"batch {batch_size} not divisible by dp={dp}")
         if seq_shard and self.is_image:
             raise ValueError("seq_shard applies to LM sequences, not images")
-        if not self.is_image and self.cfg.n_experts and world_size() > 1:
-            raise NotImplementedError(
-                f"{model_name!r} is an MoE config: over more than one rank it waits for tp/ep "
-                "(ROADMAP.md, Queue 1): the JAX module routes and sizes capacity over the "
-                "global batch, which a rank-local router does not"
-            )
         if seq_shard and seq_len % sp != 0:
             raise ValueError(f"seq {seq_len} not divisible by sp={sp}")
         if seq_shard and sp > 1 and not ring_attn:
@@ -306,9 +334,14 @@ class ShardedTrainer:
         self.opt_kwargs = dict(
             warmup_steps=warmup_steps, decay_steps=decay_steps, grad_clip=grad_clip
         )
+        tp = mesh.shape["tp"]
+        self.tp = NO_TP if tp == 1 else Tp(tp, mesh.coordinate("tp"), mesh.group("tp"))
+        if self.tp.size > 1 and not self.is_image:
+            with torch.device("meta"):  # the split's checks, before any state exists
+                build_model(model_name, attn_fn=attn_fn, tp=self.tp)
         # this rank's share: rows [row0, row0 + rows) and, with seq_shard,
         # positions [seq_offset, seq_offset + local_seq) of the global batch
-        self.world = world_size()
+        self.ranks = mesh.size
         self.rows = batch_size // dp
         self.row0 = mesh.coordinate("dp") * self.rows
         self.dp = dp
@@ -329,13 +362,28 @@ class ShardedTrainer:
 
     def init(self, seed: int = 0) -> TrainState:
         """A fresh model and optimizer, parameters drawn from a generator
-        seeded with ``seed`` on the trainer's device."""
+        seeded with ``seed`` on the trainer's device: over tp each rank
+        keeps its slice of what one rank draws.  Over several ranks each
+        MoE block routes the global batch (:class:`TokenLayout`)."""
         with self.device:  # parameters are allocated on the device
-            model, _ = build_model(self.model_name, attn_fn=self.attn_fn)
+            model, _ = build_model(self.model_name, attn_fn=self.attn_fn,
+                                   tp=None if self.is_image else self.tp)
         gen = torch.Generator(device=self.device).manual_seed(seed)
         model.reset_parameters(gen)
-        opt = make_optimizer(model.parameters(), self.learning_rate, **self.opt_kwargs)
-        return TrainState(model, opt)
+        if self.ranks > 1 and not self.is_image:
+            sp_rank = self.mesh.coordinate("sp")
+            layout = TokenLayout(
+                batch=self.batch_size, row0=self.row0, chunk=sp_rank if self.split > 1 else 0,
+                chunks=self.split, writes=self.split > 1 or sp_rank == 0,
+                replicas=self.replicas, group=self.mesh.data_group)
+            for block in model.blocks:
+                if block.is_moe:
+                    block.moe.tokens = layout
+        sharded = [p for name, p in model.named_parameters()
+                   if self.tp.size > 1 and param_partition_spec(name, p.dim()) is not None]
+        opt = make_optimizer(model.parameters(), self.learning_rate, tp=self.tp,
+                             sharded=sharded, **self.opt_kwargs)
+        return TrainState(model, opt, self.mesh if self.ranks > 1 else None)
 
     def make_batch(self, seed: int = 0) -> Batch:
         """This rank's share of a random global batch, on the device (the
@@ -367,14 +415,19 @@ class ShardedTrainer:
 
     @staticmethod
     def loss(logits: torch.Tensor, tokens: torch.Tensor,
-             count: Optional[int] = None) -> torch.Tensor:
+             count: Optional[int] = None, tp: Tp = NO_TP) -> torch.Tensor:
         """Next-token cross-entropy on f32 logits: the sum over the labels
         ``tokens[:, 1:]`` (one past the logits' positions at most) divided
-        by ``count``, by default the number of labels (the mean)."""
+        by ``count``, by default the number of labels (the mean).  Over tp
+        the logits are this rank's vocab slice and the loss is
+        vocab-parallel (:func:`vocab_parallel_loss`), no (B, S, V) gather."""
         labels = tokens[:, 1:]
         v = logits.shape[-1]
-        total = F.cross_entropy(logits[:, :labels.shape[1]].reshape(-1, v),
-                                labels.reshape(-1), reduction="sum")
+        logits = logits[:, :labels.shape[1]].reshape(-1, v)
+        if tp.size > 1:
+            total = vocab_parallel_loss(logits, labels.reshape(-1), tp)
+        else:
+            total = F.cross_entropy(logits, labels.reshape(-1), reduction="sum")
         return total / (labels.numel() if count is None else count)
 
     def _loss(self, model: torch.nn.Module, batch: Batch) -> torch.Tensor:
@@ -382,7 +435,7 @@ class ShardedTrainer:
         batch (:meth:`to_device`): its sum divided by the global count of
         labels, times the replicas of each sum.  On one rank, the mean; an
         MoE model adds ``moe_aux_weight`` times the sum of its blocks' aux
-        losses (one rank only)."""
+        losses (each this rank's share of the global aux)."""
         if self.is_image:
             images, labels = batch
             count = labels.shape[0] * self.dp * self.replicas
@@ -391,7 +444,7 @@ class ShardedTrainer:
         rows, n = chunk.shape
         count = rows * self.dp * (n * self.split - 1) * self.replicas
         logits, aux = model.forward_with_aux(chunk, pos_offset=self.seq_offset)
-        loss = self.loss(logits, batch, count)
+        loss = self.loss(logits, batch, count, self.tp)
         if aux:
             loss = loss + self.moe_aux_weight * sum(aux)
         return loss
@@ -441,7 +494,7 @@ class ShardedTrainer:
 
     def _step(self, state: TrainState, batch: Batch) -> Tuple[TrainState, torch.Tensor]:
         """:meth:`step` untraced."""
-        if self.world > 1 or self.device.type != "cuda":
+        if self.ranks > 1 or self.device.type != "cuda":
             return self._eager_step(state, batch)
         if state is not self._graph_state:
             self._graphs.clear()
@@ -462,18 +515,18 @@ class ShardedTrainer:
 
     def _eager_step(self, state: TrainState, batch: Batch) -> Tuple[TrainState, torch.Tensor]:
         """The step as plain PyTorch calls, one launch at a time.  On more
-        than one rank the gradients and the loss are summed over the world
-        before the update (the JAX step's psum): every rank makes the same
-        update and returns the global mean loss."""
+        than one rank the gradients and the loss are summed over the mesh's
+        data group before the update (the JAX step's psum): every replica
+        makes the same update, every rank returns the global mean loss."""
         state.optimizer.zero_grad()
         loss = self._loss(state.model, batch)
         loss.backward()
-        if self.world > 1:
-            _all_reduce_grads(state.model)
+        if self.ranks > 1:
+            _all_reduce_grads(state.model, self.mesh.data_group)
         state.optimizer.step()
         loss = loss.detach()
-        if self.world > 1:
-            dist.all_reduce(loss)
+        if self.ranks > 1:
+            dist.all_reduce(loss, group=self.mesh.data_group)
         return state, loss
 
     def _warm_up(self, state: TrainState, batch: Batch) -> Tuple[TrainState, torch.Tensor]:

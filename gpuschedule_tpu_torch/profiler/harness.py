@@ -1,9 +1,13 @@
 """Step and callable timing on the card, and the goodput-curve profile.
 
-Counterpart of ``gpuschedule_tpu/profiler/harness.py`` on one device:
-``time_steps``, ``time_callable``, ``measure_step_time``, ``capture_trace``
-and ``profile_model``; and, for single kernels, ``device_ms_per_launch`` (a
-``torch.profiler`` window) and ``host_us_per_call`` (the launch path).  PyTorch returns before the device finishes, so
+Counterpart of ``gpuschedule_tpu/profiler/harness.py``: ``time_steps``,
+``time_callable``, ``measure_step_time``, ``capture_trace`` and
+``profile_model``; and, for single kernels, ``device_ms_per_launch`` (a
+``torch.profiler`` window) and ``host_us_per_call`` (the launch path).
+Under a launcher the step is measured on (dp, sp, tp) meshes of the first
+k ranks, as the JAX harness measures meshes of the first k devices
+(``_mesh_trainer``): every rank calls, the ranks outside a mesh wait, and
+rank 0's time is every rank's.  PyTorch returns before the device finishes, so
 every timed window ends in ``torch.cuda.synchronize()`` (steps) or is read
 from CUDA events (callables).  The JAX package's host-readback fence works
 around its TPU transport and has no counterpart here.  With the tracer on
@@ -18,14 +22,17 @@ from __future__ import annotations
 import math
 import statistics
 import time
+import warnings
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from gpuschedule_tpu_torch.cluster.tpu import GENERATIONS
 from gpuschedule_tpu_torch.models import MODEL_CONFIGS
 from gpuschedule_tpu_torch.obs.tracer import get_tracer
+from gpuschedule_tpu_torch.parallel.mesh import sub_mesh, world_size
 from gpuschedule_tpu_torch.parallel.train import ShardedTrainer
 from gpuschedule_tpu_torch.profiler.goodput import (
     CurveCache,
@@ -95,18 +102,23 @@ def time_callable(fn, *args, iters: int = 8, warmup: int = 2, device=None) -> fl
     return (time.perf_counter() - t0) / iters
 
 
+WINDOWS = 4  # profiler windows device_ms_per_launch takes before it gives up on a kernel
+
+
 def device_ms_per_launch(fn, kernel: str, launches: int = 5):
     """(ms per launch, kernel names seen) of the device kernels whose name
     holds ``kernel`` over ``launches`` calls of ``fn`` in a
     ``torch.profiler`` window; ms is None if the profiler saw no such kernel.
-    ``fn`` launches at least one kernel, so a window that delivered no
-    device activity at all lost its records: it is taken once more."""
+    ``fn`` launches the kernel, so a window whose records hold none of its
+    launches lost them (seen on the card: a window of ``probe_copy``
+    launches with no record of the kernel): it is taken again, up to
+    WINDOWS windows."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(2):
+    for _ in range(WINDOWS):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(launches):
                 fn()
@@ -117,10 +129,9 @@ def device_ms_per_launch(fn, kernel: str, launches: int = 5):
                 names.add(evt.name)
                 if kernel in evt.name:
                     total += evt.time_range.elapsed_us() / 1e3
-        if names:
-            break
-    hits = [n for n in names if kernel in n]
-    return (total / launches if hits else None), sorted(names)
+        if any(kernel in n for n in names):
+            return total / launches, sorted(names)
+    return None, sorted(names)
 
 
 def host_us_per_call(fn, calls: int = 1000) -> float:
@@ -138,33 +149,89 @@ def host_us_per_call(fn, calls: int = 1000) -> float:
     return (t1 - t0) / calls / 1e3
 
 
+def _rank() -> int:
+    return dist.get_rank() if world_size() > 1 else 0
+
+
+def _from_rank0(value):
+    """Rank 0's ``value`` on every rank (a collective over the world)."""
+    if world_size() == 1:
+        return value
+    box = [value]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+def _mesh_trainer(model_name, k, batch_size, seq_len, *, sp=1, tp=1, pp=1,
+                  seq_shard=False, flash_attn=False, warmup=2, device=None):
+    """(trainer, state, batch) on a (dp, sp, tp) mesh of the first ``k``
+    ranks, dp taking what sp and tp leave, the batch rounded down to a dp
+    multiple (with the JAX harness's warning), after ``warmup`` steps (at
+    least the two that warm up and capture a step on one card), fenced;
+    None on a rank outside the mesh.  Every rank calls it.  An sp mesh
+    splits the sequence, and the port's sp attention is the dense ring
+    (``ring_attn``; the JAX trainer gathers the sequence instead)."""
+    if pp > 1:
+        raise NotImplementedError(f"pp={pp}: the pipeline trainer is not ported yet "
+                                  "(ROADMAP.md, Queue 1)")
+    if sp < 1 or tp < 1 or k % (sp * tp) != 0:
+        raise ValueError(f"{k} devices do not factor as dp x sp={sp} x tp={tp} x pp={pp}")
+    dp = k // (sp * tp)
+    mesh = sub_mesh(k, dp=dp, sp=sp, tp=tp, device=device)
+    if mesh is None:
+        return None
+    bs = batch_size
+    if bs % dp != 0:
+        bs = max(dp, bs - bs % dp)
+        # a silent round-down would mix workloads across the fitted ks
+        warnings.warn(
+            f"batch {batch_size} not divisible by dp={dp}: measuring "
+            f"batch {bs} instead — step times at this k are NOT "
+            f"comparable to ks that kept the full batch; use a batch "
+            f"size divisible by every profiled k",
+            stacklevel=3,
+        )
+    trainer = ShardedTrainer(model_name, mesh, batch_size=bs, seq_len=seq_len,
+                             seq_shard=seq_shard, ring_attn=seq_shard, flash_attn=flash_attn)
+    state = trainer.init(seed=0)
+    batch = trainer.make_batch(seed=0)
+    loss = None
+    for _ in range(max(2, warmup)):
+        state, loss = trainer.step(state, batch)
+    _fence(loss)
+    return trainer, state, batch
+
+
 def measure_step_time(
     model_name: str,
     *,
+    devices: Optional[int] = None,
     batch_size: int = 8,
     seq_len: int = 128,
     warmup: int = 2,
     iters: int = 10,
     repeats: int = 1,
+    sp: int = 1,
+    tp: int = 1,
+    pp: int = 1,
+    seq_shard: bool = False,
     flash_attn: bool = False,
     device=None,
-) -> float:
+) -> Optional[float]:
     """Median seconds per optimizer step of ``model_name`` (any zoo family;
-    ``seq_len`` means nothing to a CNN) on one device (``cuda`` unless
-    ``device="cpu"``), after ``warmup`` steps: at least the two that warm
-    up and capture the step on the card."""
+    ``seq_len`` means nothing to a CNN) on a (dp, sp, tp) mesh of the first
+    ``devices`` ranks (default: the world; one device without a launcher),
+    each on ``cuda`` unless ``device="cpu"``, after ``warmup`` steps.
+    Every rank calls it; a rank outside the mesh gets None."""
+    k = world_size() if devices is None else devices
     with get_tracer().span("profiler.measure_step_time", cat="profiler", model=model_name,
-                           k=1, sp=1, tp=1, pp=1) as sp_:
-        trainer = ShardedTrainer(
-            model_name, batch_size=batch_size, seq_len=seq_len,
-            flash_attn=flash_attn, device=device,
-        )
-        state = trainer.init(seed=0)
-        batch = trainer.make_batch(seed=0)
-        loss = None
-        for _ in range(max(2, warmup)):
-            state, loss = trainer.step(state, batch)
-        _fence(loss)
+                           k=k, sp=sp, tp=tp, pp=pp) as sp_:
+        built = _mesh_trainer(model_name, k, batch_size, seq_len, sp=sp, tp=tp, pp=pp,
+                              seq_shard=seq_shard, flash_attn=flash_attn, warmup=warmup,
+                              device=device)
+        if built is None:
+            return None
+        trainer, state, batch = built
         step_s, _ = time_steps(trainer.step, state, batch, iters=iters, repeats=repeats)
         sp_.set(step_s=step_s)
     return step_s
@@ -177,6 +244,8 @@ def capture_trace(
     batch_size: int = 8,
     seq_len: int = 128,
     steps: int = 3,
+    sp: int = 1,
+    tp: int = 1,
     device=None,
 ) -> str:
     """Write a Chrome trace (``torch.profiler``) of ``steps`` train steps
@@ -184,22 +253,20 @@ def capture_trace(
 
     The deep-inspection path beside :func:`measure_step_time`: the median
     comes from there, the per-kernel timeline from here.  The traced step is
-    the measured one (same trainer, batch and sequence length), after the
-    two warm-up steps that build and capture it, so the window holds replays
-    of the captured step; on the card the window records device activity
-    and ends in a synchronize, so every step's kernels lie inside it.  View
-    the file in ui.perfetto.dev or chrome://tracing."""
+    the measured one (the same ``_mesh_trainer``: trainer, batch, sequence
+    length, and the (dp, sp, tp) mesh over the world that ``sp`` and ``tp``
+    give), after the two warm-up steps that build and capture it, so on one
+    card the window holds replays of the captured step; on the card the
+    window records device activity and ends in a synchronize, so every
+    step's kernels lie inside it.  Over several ranks every rank steps and
+    rank 0 writes its trace.  View the file in ui.perfetto.dev or
+    chrome://tracing."""
     from torch.profiler import ProfilerActivity, profile
 
     with get_tracer().span("profiler.capture_trace", cat="profiler", model=model_name,
                            steps=steps):
-        trainer = ShardedTrainer(model_name, batch_size=batch_size, seq_len=seq_len,
-                                 device=device)
-        state = trainer.init(seed=0)
-        batch = trainer.make_batch(seed=0)
-        for _ in range(2):
-            state, loss = trainer.step(state, batch)
-        _fence(loss)
+        trainer, state, batch = _mesh_trainer(model_name, world_size(), batch_size, seq_len,
+                                              sp=sp, tp=tp, seq_shard=sp > 1, device=device)
         cuda = trainer.device.type == "cuda"
         activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
         with profile(activities=activities) as prof:
@@ -208,9 +275,10 @@ def capture_trace(
             if cuda:
                 torch.cuda.synchronize(trainer.device)
         out = Path(out_dir)
-        out.mkdir(parents=True, exist_ok=True)
         path = out / "trace.json"
-        prof.export_chrome_trace(str(path))
+        if _rank() == 0:
+            out.mkdir(parents=True, exist_ok=True)
+            prof.export_chrome_trace(str(path))
     return str(path)
 
 
@@ -227,59 +295,79 @@ def profile_model(
     pp: int = 1,
     device=None,
 ) -> GoodputCurve:
-    """Fit a goodput curve for ``model_name``: measure k = 1 on the device,
-    synthesize every other k, fit, and store the curve in ``cache``.
+    """Fit a goodput curve for ``model_name``: measure what the ranks
+    allow, synthesize every other k, fit, and store the curve in ``cache``.
 
-    What the JAX package's ``profile_model`` does on one device: the
-    measured step anchors ``synthesize_step_times`` (the TPU ICI/DCN model of
-    ``generation``, unchanged, so the simulator reads the curve it expects),
-    the smooth family is fit on the intra-pod points and carries the
-    multislice fields, and the cache entry has the same key, ``source`` and
-    points.  The device is ``cuda`` unless ``device="cpu"``.  ``sp``, ``tp``
-    and ``pp`` above 1 need a mesh, which is not ported yet."""
-    if (sp, tp, pp) != (1, 1, 1):
-        raise NotImplementedError(
-            f"only sp=tp=pp=1 is ported (got sp={sp} tp={tp} pp={pp}); "
-            "multi-GPU meshes and the pipeline trainer are queued in ROADMAP.md"
-        )
+    What the JAX package's ``profile_model`` does: every k up to the
+    world's ranks (one device without a launcher) is measured on a
+    (dp, sp, tp) mesh of the first k ranks with dp = k / (sp * tp)
+    (:func:`measure_step_time`; every rank calls, rank 0's times count);
+    the smallest replica's point (k = sp * tp) anchors
+    ``synthesize_step_times`` for the rest (the TPU ICI/DCN model of
+    ``generation``, unchanged, so the simulator reads the curve it
+    expects), the dp-sync payload per device shrunk by tp; the smooth
+    family is fit on the intra-pod points and carries the multislice
+    fields; the cache entry (rank 0 writes it) has the same key
+    (``model@sp{sp}tp{tp}`` off the plain dp curve), ``source`` and points.
+    The device is ``cuda`` unless ``device="cpu"``.  ``pp`` above 1 needs
+    the pipeline trainer, which is not ported yet."""
+    if pp > 1:
+        raise NotImplementedError(f"pp={pp}: the pipeline trainer is not ported yet "
+                                  "(ROADMAP.md, Queue 1)")
     cfg = MODEL_CONFIGS[model_name]
-    n_devices = 1
+    n_devices = world_size()
+    unit = sp * tp * pp  # the smallest k that forms one model replica
+    bad = [k for k in ks if k % unit]
+    if bad:
+        raise ValueError(f"ks {bad} not divisible by sp*tp*pp={unit}")
 
-    def measure() -> float:
-        return measure_step_time(model_name, batch_size=batch_size, seq_len=seq_len,
-                                 device=device)
+    def measure(k: int) -> float:
+        return _from_rank0(measure_step_time(
+            model_name, devices=k, batch_size=batch_size, seq_len=seq_len, sp=sp, tp=tp,
+            seq_shard=sp > 1, device=device))
 
     with get_tracer().span("profiler.profile_model", cat="profiler", model=model_name,
                            ks=list(ks), generation=generation) as prof_sp:
-        measured: Dict[int, float] = {k: measure() for k in ks if k <= n_devices}
+        measured: Dict[int, float] = {k: measure(k) for k in ks if k <= n_devices}
         prof_sp.set(measured_ks=sorted(measured))
     synth_ks = [k for k in ks if k not in measured]
-    if synth_ks and 1 not in measured:
-        # the analytic extension anchors on the one-device point
-        measured[1] = measure()
+    if synth_ks and unit not in measured:
+        # the analytic extension anchors on the smallest replica's point,
+        # measured only when the synthesis needs it
+        if unit > n_devices:
+            raise ValueError(f"sp*tp*pp={unit} exceeds the {n_devices} available devices; "
+                             "nothing is measurable")
+        measured[unit] = measure(unit)
     points = dict(measured)
+    # per-device dp-grad payload: tp splits the parameters
+    per_chip_params = cfg.param_count // (tp * pp)
     if synth_ks:
         synth = synthesize_step_times(
-            single_chip_step_s=measured[1],
-            param_count=cfg.param_count,
+            single_chip_step_s=measured[unit],
+            param_count=per_chip_params,
             generation=generation,
             ks=synth_ks,
+            unit=unit,
         )
         points.update(dict(zip(synth_ks, synth)))
 
     # Fit the smooth family on intra-pod points only (it cannot represent
     # the ICI->DCN step at the pod boundary); the curve carries the
     # multislice fields and adds the DCN phase in step_time_dcn.  The
-    # measured k = 1 point is always intra-pod, so the JAX package's branch
-    # for a request wholly beyond one pod does not arise on one device.
+    # measured points are intra-pod (a launcher's ranks are far fewer than
+    # a pod's chips), so the JAX package's branch for a request wholly
+    # beyond one pod does not arise.
     pod = math.prod(GENERATIONS[generation]["pod_dims"])
     intra = {k: v for k, v in points.items() if k <= pod}
     curve = fit_step_time_curve(sorted(intra), [intra[k] for k in sorted(intra)])
     curve = GoodputCurve(curve.theta, pod_chips=pod,
-                         dcn_grad_bytes=dp_gradient_bytes(cfg.param_count))
-    if cache is not None:
+                         dcn_grad_bytes=dp_gradient_bytes(per_chip_params))
+    if cache is not None and _rank() == 0:
+        # sp/tp variants get their own key: the scheduler's replay looks
+        # curves up by bare model name
+        key = model_name if (sp, tp) == (1, 1) else f"{model_name}@sp{sp}tp{tp}"
         cache.put(
-            model_name,
+            key,
             curve,
             source=(
                 f"measured<= {n_devices} chips (sp={sp}, tp={tp}, pp={pp}), "

@@ -166,10 +166,12 @@ def test_reshard_state_keeps_values():
 
 
 def test_tp_layout_raises(tmp_path):
-    tp = SimpleNamespace(mesh=SimpleNamespace(shape={"pp": 1, "dp": 1, "sp": 1, "tp": 2}))
+    """A pp layout's checkpoint is not ported and raises before anything
+    is read; tp layouts restore (``tests/test_torch_tp_dist.py``)."""
+    pp = SimpleNamespace(mesh=SimpleNamespace(shape={"pp": 2, "dp": 1, "sp": 1, "tp": 1}))
     state = _trainer().init(seed=0)
-    for fn in (lambda: restore_state(tp, tmp_path), lambda: reshard_state(tp, state)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+    for fn in (lambda: restore_state(pp, tmp_path), lambda: reshard_state(pp, state)):
+        with pytest.raises(NotImplementedError, match="pp=2: .*pipeline"):
             fn()
 
 

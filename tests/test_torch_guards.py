@@ -13,6 +13,7 @@ from gpuschedule_tpu_torch import resolve_device
 from gpuschedule_tpu_torch.cli import main
 from gpuschedule_tpu_torch.models import MODEL_CONFIGS, CnnConfig, build_model
 from gpuschedule_tpu_torch.parallel import ShardedTrainer
+from gpuschedule_tpu_torch.parallel.tp import Tp
 from gpuschedule_tpu_torch.ops.overhead_probe import probe_copy
 from gpuschedule_tpu_torch.profiler import measure_step_time, profile_model
 from gpuschedule_tpu_torch.tools.overhead_probe import run_grid
@@ -75,21 +76,29 @@ def test_scans_cover_the_bench_and_the_card_table():
             "gpuschedule_tpu_torch/obs/tracer.py", "chip_smoke.py"} <= names
 
 
-def test_unported_options_raise(tmp_path, monkeypatch):
-    """tp and pp stay unported (dp and sp are: tests/test_torch_ring*.py,
-    where a real tp = 2 mesh makes the trainer raise too), and so does an
-    MoE model over more than one rank (it waits for tp/ep); the trainer's
-    ring and flash options raise the JAX trainer's errors, a CNN with an
+def test_unported_options_raise(tmp_path):
+    """pp stays unported; tp and sp take the JAX package's errors on a
+    world of one rank (they run in tests/test_torch_ring*.py and
+    tests/test_torch_tp*.py, over gloo ranks, the MoE models too), and a
+    tp that does not divide the model raises; the trainer's ring
+    and flash options raise the JAX trainer's errors, a CNN with an
     attention core raises the JAX ``build_model``'s, and a mesh must span
     the launcher's world."""
-    with pytest.raises(SystemExit, match="ROADMAP"):
+    with pytest.raises(SystemExit, match="not divisible by pp\\*sp\\*tp=2"):
         main(["train", "--model", "transformer-tiny", "--tp", "2", "--device", "cpu"])
-    for kw in ({"sp": 2}, {"tp": 2}, {"pp": 2}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        profile_model("transformer-tiny", device="cpu", pp=2)
+    for kw in ({"sp": 2}, {"tp": 2}):
+        with pytest.raises(ValueError, match=r"ks \[1\] not divisible by sp\*tp\*pp=2"):
             profile_model("transformer-tiny", device="cpu", **kw)
+        with pytest.raises(ValueError, match="exceeds the 1 available devices"):
+            profile_model("transformer-tiny", ks=(2, 4), device="cpu", **kw)
     with pytest.raises(SystemExit, match="ROADMAP"):
-        main(["profile", "--model", "transformer-tiny", "--tp", "2", "--device", "cpu",
+        main(["profile", "--model", "transformer-tiny", "--pp", "2", "--device", "cpu",
               "--curves", str(tmp_path / "c.json")])
+    with pytest.raises(SystemExit, match="exceeds the 1 available devices"):
+        main(["profile", "--model", "transformer-tiny", "--tp", "2", "--ks", "2,4",
+              "--device", "cpu", "--curves", str(tmp_path / "c.json")])
     for kw in ({"ring_attn": True}, {"ring_attn": True, "flash_attn": True}):
         with pytest.raises(ValueError, match="ring_attn requires seq_shard=True"):
             ShardedTrainer("transformer-tiny", device="cpu", **kw)
@@ -97,13 +106,8 @@ def test_unported_options_raise(tmp_path, monkeypatch):
         ShardedTrainer("transformer-tiny", flash_attn=True, seq_shard=True, device="cpu")
     with pytest.raises(SystemExit, match="world of 1 ranks"):
         main(["train", "--model", "transformer-tiny", "--devices", "2", "--device", "cpu"])
-    from gpuschedule_tpu_torch.parallel import train
-
-    with monkeypatch.context() as m:
-        m.setattr(train, "world_size", lambda: 2)
-        for name in ("moe-tiny", "moe-top2-tiny"):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                ShardedTrainer(name, device="cpu")
+    with pytest.raises(ValueError, match="n_heads 4 of 'moe-tiny' not divisible by tp=8"):
+        build_model("moe-tiny", tp=Tp(8, 0))
     with pytest.raises(ValueError, match="attn_fn applies to transformer LMs, not CNNs"):
         build_model("resnet-tiny", attn_fn=lambda q, k, v: q)
     with pytest.raises(ValueError, match="attn_fn applies to transformer LMs, not CNNs"):

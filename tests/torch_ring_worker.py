@@ -13,6 +13,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+from functools import partial
 from pathlib import Path
 
 import numpy as np
@@ -20,6 +21,8 @@ import torch
 import torch.distributed as dist
 
 from gpuschedule_tpu_torch.cli import main as cli_main
+from gpuschedule_tpu_torch.models import build_model
+from gpuschedule_tpu_torch.ops import flash_attention
 from gpuschedule_tpu_torch.parallel import (
     ShardedTrainer,
     make_mesh,
@@ -100,15 +103,36 @@ def _checks(data, out_dir) -> tuple:
                                     "--ring-attn", "--flash-attn", "--device", "cpu"])
     found["cli_out"] = buf.getvalue()
 
-    # 4. tensor parallelism stays unported on a real tp = 2 mesh, and so
-    # does an MoE model over more than one rank
-    for key, name, kw in (("tp_error", "transformer-tiny", {"dp": 2, "tp": 2}),
-                          ("moe_error", "moe-tiny", {"dp": 2, "sp": 2})):
-        try:
-            ShardedTrainer(name, make_mesh(device="cpu", **kw))
-            found[key] = None
-        except NotImplementedError as e:
-            found[key] = str(e)
+    # 4. an MoE model over the four ranks, the sequence split over sp
+    # (ring-flash): block 0's routes, given the one-rank model's input to
+    # it, are the one-rank module's for this rank's rows and chunk (the
+    # counts of the row chunks ahead exchanged over dp x sp), then three
+    # steps, the first loss beside the one-rank model's
+    moe = ShardedTrainer("moe-top2-tiny", mesh, batch_size=4, seq_len=64, learning_rate=3e-3,
+                         seq_shard=True, ring_attn=True, flash_attn=True)
+    mstate = moe.init(seed=0)
+    # the one-rank model: the trainer's init and loss, no ranks
+    one, _ = build_model("moe-top2-tiny", attn_fn=partial(flash_attention, causal=True))
+    one.reset_parameters(torch.Generator().manual_seed(0))
+    tokens = torch.from_numpy(data["tokens"][0]).long()
+    grab = {}
+    hook = one.blocks[0].moe.register_forward_pre_hook(
+        lambda mod, args: grab.setdefault("x", args[0]))
+    with torch.no_grad():
+        logits, aux = one.forward_with_aux(tokens)
+        hook.remove()
+        found["moe_one_rank_loss"] = float(ShardedTrainer.loss(logits, tokens)
+                                           + moe.moe_aux_weight * sum(aux))
+        d_ref, _, _ = one.blocks[0].moe.route(grab["x"])
+        d, _, _ = mstate.model.blocks[0].moe.route(grab["x"][r0:r0 + rows, c0:c0 + chunk])
+    mine = d_ref.view(4, 64, *d_ref.shape[1:])[r0:r0 + rows, c0:c0 + chunk].flatten(0, 1)
+    found["moe_routes_equal"] = bool(torch.equal(d, mine)) and bool(d.any())
+    found["moe_losses"] = []
+    for tokens in data["tokens"]:
+        mstate, loss = moe.step(mstate, moe.to_device(tokens))
+        found["moe_losses"].append(float(loss))
+    params.update({f"moe:{name}": p.detach().numpy()
+                   for name, p in mstate.model.named_parameters()})
 
     # 5. the CNN over dp = 2 (the sp ranks hold replicas): three steps from
     # the JAX trainer's parameters on the same (images, labels) batches
