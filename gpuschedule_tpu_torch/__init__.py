@@ -10,11 +10,13 @@ nothing of ``gpuschedule_tpu``, of which it keeps its own copies.
 Layering:
     models/     model configs (own copy), the transformer LM and the ResNet
     ops/        dense oracle, flash attention: CUDA kernels + plain versions
-    parallel/   mesh, sp rings (dense and flash), optimizer and the train step
+    parallel/   mesh, sp rings (dense and flash) and gather, tp, optimizer, the
+                train step and the pipeline
     data/       synthetic token batches (own copy, numpy)
     profiler/   step and callable timing on the card
     convert.py  flax parameter trees -> this package's state_dict
     cli.py      ``python -m gpuschedule_tpu_torch train ...``
+    entry.py    the driver's entry points: the flagship's forward, the dryrun
 
 Every entry point runs on ``cuda`` unless the caller passes ``device="cpu"``;
 see :func:`resolve_device`.

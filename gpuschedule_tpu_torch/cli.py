@@ -2,7 +2,9 @@
 
 Counterparts of the JAX package's subcommands:
 
-- ``train`` builds a dp x sp x tp mesh and the trainer over it, feeds it from a
+- ``train`` builds a dp x sp x tp mesh and the trainer over it (``--pp``
+  >= 2: a (pp, dp) mesh and the pipeline's ``PipelinedLM``, with
+  ``--microbatches`` and ``--pp-schedule``), feeds it from a
   token file (``--data``, ``--data-dtype``, ``--host-shard``) or
   :func:`synthetic_lm_batches` through ``prefetch_to_device(size=2)``,
   optionally restores from (``--restore``) and saves to (``--ckpt``) a
@@ -26,8 +28,9 @@ Counterparts of the JAX package's subcommands:
   ``{"model", "theta"}`` per model, then ``{"model", "trace"}`` when
   ``--trace-dir`` is given.  Under a launcher every k up to the world's
   ranks is measured on a mesh of the first k ranks (``--sp``/``--tp``
-  set its replica, ``model@sp{sp}tp{tp}`` its cache key), and rank 0
-  prints and writes the curves.  ``--pp`` above 1 is not ported yet.
+  set its replica, ``model@sp{sp}tp{tp}`` its cache key; ``--pp`` a
+  pipeline's, ``model@sp1tp1pp{pp}``), and rank 0 prints and writes the
+  curves.
 """
 
 from __future__ import annotations
@@ -144,24 +147,27 @@ def _train(args) -> int:
         synthetic_lm_batches,
     )
     from gpuschedule_tpu_torch.obs import get_tracer
-    from gpuschedule_tpu_torch.parallel import ShardedTrainer, make_mesh
+    from gpuschedule_tpu_torch.parallel import PipelinedLM, ShardedTrainer, make_mesh
     from gpuschedule_tpu_torch.parallel.checkpoint import restore_state, save_state
 
+    opt = dict(learning_rate=args.lr, flash_attn=args.flash_attn,
+               warmup_steps=args.warmup_steps, decay_steps=args.decay_steps,
+               grad_clip=args.grad_clip)
+    if args.pp > 1 and (args.sp > 1 or args.tp > 1 or args.ring_attn):
+        raise SystemExit("--pp composes with dp only; drop --sp/--tp/--ring-attn")
     try:
-        mesh = make_mesh(sp=args.sp, tp=args.tp, devices=args.devices, device=args.device)
-        trainer = ShardedTrainer(
-            args.model,
-            mesh,
-            batch_size=args.batch_size,
-            seq_len=args.seq_len,
-            learning_rate=args.lr,
-            seq_shard=args.ring_attn,
-            ring_attn=args.ring_attn,
-            flash_attn=args.flash_attn,
-            warmup_steps=args.warmup_steps,
-            decay_steps=args.decay_steps,
-            grad_clip=args.grad_clip,
-        )
+        if args.pp > 1:
+            # the staged trainer: blocks split over pp, microbatches
+            # through the pipeline's schedule
+            mesh = make_mesh(pp=args.pp, devices=args.devices, device=args.device)
+            trainer = PipelinedLM(args.model, mesh, batch_size=args.batch_size,
+                                  seq_len=args.seq_len, num_microbatches=args.microbatches,
+                                  schedule=args.pp_schedule, **opt)
+        else:
+            mesh = make_mesh(sp=args.sp, tp=args.tp, devices=args.devices, device=args.device)
+            trainer = ShardedTrainer(args.model, mesh, batch_size=args.batch_size,
+                                     seq_len=args.seq_len, seq_shard=args.ring_attn,
+                                     ring_attn=args.ring_attn, **opt)
     except (ValueError, NotImplementedError, RuntimeError) as e:
         raise SystemExit(str(e))
     if trainer.is_image:
@@ -297,7 +303,8 @@ def _profile(args, device, ks) -> int:
             print(json.dumps({"model": model, "theta": list(curve.theta)}))
         if args.trace_dir:
             path = capture_trace(model, f"{args.trace_dir}/{model}", batch_size=args.batch_size,
-                                 seq_len=args.seq_len, sp=args.sp, tp=args.tp, device=device)
+                                 seq_len=args.seq_len, sp=args.sp, tp=args.tp, pp=args.pp,
+                                 device=device)
             if rank0:
                 print(json.dumps({"model": model, "trace": path}))
     return 0
@@ -321,6 +328,16 @@ def build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--sp", type=int, default=1)
     tr.add_argument("--tp", type=int, default=1,
                     help="tensor-parallel ranks (megatron splits, the MoE's experts over tp)")
+    tr.add_argument("--pp", type=int, default=1,
+                    help="pipeline stages (>=2 trains the staged PipelinedLM; incompatible "
+                         "with --sp/--tp/--ring-attn)")
+    tr.add_argument("--microbatches", type=int, default=4,
+                    help="pipeline microbatch count M (bubble fraction (pp-1)/(M+pp-1); "
+                         "only with --pp >= 2)")
+    tr.add_argument("--pp-schedule", choices=("gpipe", "remat"), default="gpipe",
+                    help="pipeline activation-memory schedule: gpipe keeps each "
+                         "microbatch's stage internals, remat recomputes them from the "
+                         "stage's input")
     tr.add_argument("--devices", type=int,
                     help="the mesh's devices, one a rank: must be the launcher's world "
                          "size (default: the world)")
@@ -351,9 +368,12 @@ def build_parser() -> argparse.ArgumentParser:
     prof.add_argument("--batch-size", type=int, default=8)
     prof.add_argument("--seq-len", type=int, default=128)
     prof.add_argument("--sp", type=int, default=1,
-                      help="sequence-parallel ranks of a measured replica (the dense ring)")
+                      help="sequence-parallel ranks of a measured replica (dense attention "
+                           "over the sequence gathered over sp)")
     prof.add_argument("--tp", type=int, default=1, help="tensor-parallel ranks of a measured replica")
-    prof.add_argument("--pp", type=int, default=1, help="not ported: must be 1")
+    prof.add_argument("--pp", type=int, default=1,
+                      help="pipeline stages of a measured replica (the staged PipelinedLM; "
+                           "composes with dp only)")
     prof.add_argument("--curves", required=True)
     prof.add_argument("--trace-dir", help="also write a torch.profiler Chrome trace of the step here")
     prof.add_argument("--device", default=None,

@@ -15,6 +15,12 @@ in the middle of training: adamw's moments map by the same paths, and the
 counts become adamw's step and the schedule's position, in the flat form
 of ``parallel/checkpoint.py``'s ``state_dict``.
 
+A pipeline's tree (the JAX ``PipelinedLM``'s: ``embed``, ``head`` and the
+blocks under ``stages``, stacked on a leading stage dim) maps onto one
+stage's rank of the port's ``PipelinedLM`` (``stage=``): the embedding and
+the head whole, and the stage's slice of each stacked leaf, its
+``layer{i}`` the rank's ``blocks.{i}``.
+
 Over tp both take the rank's :class:`~gpuschedule_tpu_torch.parallel.tp.Tp`
 and give its shards (the partition table's slices);
 :func:`unshard_state_dict` puts the shards of a tp-split ``state_dict``
@@ -23,6 +29,7 @@ back together on every tp rank.
 
 from __future__ import annotations
 
+import re
 from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
@@ -34,6 +41,15 @@ from gpuschedule_tpu_torch.models.transformer import TransformerLM
 from gpuschedule_tpu_torch.parallel.tp import NO_TP, Tp, flax_path, param_partition_spec
 
 
+def _leaves(tree):
+    """The leaves of a nested mapping, depth first."""
+    for value in tree.values():
+        if isinstance(value, Mapping):
+            yield from _leaves(value)
+        else:
+            yield value
+
+
 def _get(tree: Mapping, path) -> np.ndarray:
     node = tree
     for name in path:
@@ -41,25 +57,52 @@ def _get(tree: Mapping, path) -> np.ndarray:
     return np.asarray(node)
 
 
+def _stage_path(name: str, layers: int):
+    """(the JAX ``PipelinedLM`` path of a stage rank's ``state_dict`` name,
+    whether its leaf is stacked over stages), or None for a block past the
+    stage's ``layers``."""
+    block = re.match(r"blocks\.(\d+)\.(.*)$", name)
+    if block is not None:
+        if int(block[1]) >= layers:
+            return None
+        return ["stages", f"layer{block[1]}", "params", *block[2].split(".")], True
+    part = "embed" if name.startswith(("embed.", "pos_embed")) else "head"
+    return [part, "params", *name.split(".")], False
+
+
 def params_from_jax(params: Mapping, cfg: "ModelConfig | CnnConfig",
-                    tp: Tp = NO_TP) -> Dict[str, torch.Tensor]:
+                    tp: Tp = NO_TP, *, stage: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """The state_dict of ``cfg``'s module (a ``TransformerLM``, dense or
     MoE, or a ``ResNet``) holding the flax parameters ``params`` (the
     ``"params"`` collection, or the dict that wraps it): over ``tp``, this
-    rank's shard of each.  Raises ``KeyError`` naming the flax path of any
-    missing leaf.  ``cfg`` may be the JAX package's config of the same
-    model: a config with ``channels`` is a CNN's."""
+    rank's shard of each.  With ``stage``, ``params`` is the JAX
+    ``PipelinedLM``'s tree and the state_dict that of stage ``stage``'s
+    rank: the embedding, the head and the stage's blocks.  Raises
+    ``KeyError`` naming the flax path of any missing leaf.  ``cfg`` may be
+    the JAX package's config of the same model: a config with ``channels``
+    is a CNN's."""
     if "params" in params:
         params = params["params"]
     with torch.device("meta"):
         module = ResNet(cfg) if hasattr(cfg, "channels") else TransformerLM(cfg)
+    if stage is not None:
+        pp = np.asarray(next(iter(_leaves(params["stages"])))).shape[0]
+        layers = cfg.n_layers // pp
     out: Dict[str, torch.Tensor] = {}
     for name in module.state_dict():
-        path = flax_path(name)
+        if stage is None:
+            path, stacked = flax_path(name), False
+        else:
+            found = _stage_path(name, layers)
+            if found is None:
+                continue
+            path, stacked = found
         try:
             arr = _get(params, path)
         except KeyError:
             raise KeyError(f"flax parameter {'/'.join(path)} is missing") from None
+        if stacked:
+            arr = arr[stage]
         full = torch.from_numpy(np.array(arr, dtype=np.float32))
         dim = param_partition_spec(name, full.dim()) if tp.size > 1 else None
         out[name] = tp.shard(full, dim).contiguous()
@@ -94,7 +137,7 @@ def _optax_parts(opt_state) -> Tuple[object, bool, Optional[object]]:
 
 
 def opt_state_from_jax(opt_state, cfg: "ModelConfig | CnnConfig",
-                       tp: Tp = NO_TP) -> Dict[str, torch.Tensor]:
+                       tp: Tp = NO_TP, *, stage: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """The ``optimizer.*`` entries of a checkpoint's dict
     (``parallel.checkpoint.state_dict``) holding optax adamw's ``opt_state``
     (the JAX ``make_optimizer``'s, any of its four forms): each
@@ -104,9 +147,13 @@ def opt_state_from_jax(opt_state, cfg: "ModelConfig | CnnConfig",
     ``optimizer.count``; whether a clip and a schedule are in the chain as
     ``optimizer.grad_clip`` and ``optimizer.schedule``.  With the
     parameters (``model.`` + :func:`params_from_jax`) it loads into a
-    trainer with ``load_state_dict``; over ``tp``, this rank's shards."""
+    trainer with ``load_state_dict``; over ``tp``, this rank's shards; with
+    ``stage``, a JAX ``PipelinedLM``'s state for that stage's rank, under
+    the rank's own names (``parallel.pipeline.whole_names`` gives the
+    checkpoint's)."""
     adam, clipped, sched = _optax_parts(opt_state)
-    mu, nu = params_from_jax(adam.mu, cfg, tp), params_from_jax(adam.nu, cfg, tp)
+    mu = params_from_jax(adam.mu, cfg, tp, stage=stage)
+    nu = params_from_jax(adam.nu, cfg, tp, stage=stage)
     step = float(np.asarray(adam.count))
     out: Dict[str, torch.Tensor] = {}
     for name in mu:

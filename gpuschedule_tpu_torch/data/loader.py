@@ -139,25 +139,32 @@ class BatchSharding:
     """Where a global batch goes on this rank: rows ``[row0, row0 + rows)``
     and, of a token batch, positions ``[seq0, seq0 + seq_len]`` (the chunk
     and one token past it, the label of the chunk's last position; the
-    last chunk has none past it), on ``device``."""
+    last chunk has none past it), on ``device``.  With ``blocks`` > 1 the
+    batch's rows are that many equal blocks (a pipeline's microbatches)
+    and the rank takes rows ``[row0, row0 + rows)`` of each, block after
+    block."""
 
     device: torch.device
     row0: int
     rows: int
     seq0: int
     seq_len: int
+    blocks: int = 1
+
+    def _rows(self, x: np.ndarray) -> np.ndarray:
+        blocked = x.reshape(self.blocks, -1, *x.shape[1:])
+        return blocked[:, self.row0:self.row0 + self.rows].reshape(-1, *x.shape[1:])
 
     def host_share(self, batch):
         """This rank's share of ``batch`` as new, writable, C-ordered numpy
         arrays: a token batch as int64, an ``(images, labels)`` pair as
         (float32, int64)."""
-        rows = slice(self.row0, self.row0 + self.rows)
         if isinstance(batch, (tuple, list)):
-            images, labels = (np.asarray(x) for x in batch)
-            return (np.array(images[rows], dtype=np.float32, order="C"),
-                    np.array(labels[rows], dtype=np.int64, order="C"))
+            images, labels = (self._rows(np.asarray(x)) for x in batch)
+            return (np.array(images, dtype=np.float32, order="C"),
+                    np.array(labels, dtype=np.int64, order="C"))
         cols = slice(self.seq0, self.seq0 + self.seq_len + 1)
-        return np.array(np.asarray(batch)[rows, cols], dtype=np.int64, order="C")
+        return np.array(self._rows(np.asarray(batch))[:, cols], dtype=np.int64, order="C")
 
     def to_device(self, batch):
         """``host_share`` as tensors on the device, copied synchronously."""

@@ -156,16 +156,19 @@ class Embed(nn.Module):
         return self.tp.reduce(rows * inside[..., None])
 
 
-def dense_self_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
+def dense_self_attention(q, k, v, *, causal: bool = True, q_offset: int = 0) -> torch.Tensor:
     """The attention core of flax ``nn.SelfAttention`` with a causal mask,
     in bf16: (B, S, H, D) in and out.  Plain PyTorch, no kernel of ours —
-    the JAX package's dense path runs none either."""
+    the JAX package's dense path runs none either.  ``q_offset`` is the
+    position of q's first row among k's (q a chunk of a longer sequence
+    whose keys are all present): the causal mask lets row i see keys
+    up to ``q_offset + i``."""
     depth = q.shape[-1]
     q = q / torch.tensor(math.sqrt(depth), dtype=torch.float32).to(q.dtype)
     w = torch.einsum("bqhd,bkhd->bhqk", q, k)
     if causal:
-        s = q.shape[1]
-        mask = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+        mask = torch.ones(q.shape[1], k.shape[1], dtype=torch.bool,
+                          device=q.device).tril(q_offset)
         w = w.masked_fill(~mask, torch.finfo(w.dtype).min)
     e = torch.exp(w - w.amax(dim=-1, keepdim=True))
     w = e / e.sum(dim=-1, keepdim=True)
@@ -415,13 +418,26 @@ class TransformerLM(nn.Module):
     def forward_with_aux(self, tokens: torch.Tensor, pos_offset: int = 0):
         """(logits, aux): :meth:`forward`'s logits and the list of the MoE
         blocks' aux losses in block order (empty for a dense MLP), what
-        the flax model sows into ``moe_losses``."""
+        the flax model sows into ``moe_losses``.  It is the three stage
+        pieces in a row: :meth:`embed_tokens`, :meth:`run_blocks` and
+        :meth:`head`, which the pipeline runs on their own stages."""
+        x, aux = self.run_blocks(self.embed_tokens(tokens, pos_offset))
+        return self.head(x), aux
+
+    def embed_tokens(self, tokens: torch.Tensor, pos_offset: int = 0) -> torch.Tensor:
+        """The token and position embedding of ``tokens`` at positions
+        ``pos_offset`` on (flax's ``Embedder``, the pipeline's first
+        boundary): (B, S, d) bf16."""
         n = tokens.shape[1]
         if pos_offset < 0 or pos_offset + n > self.cfg.max_seq:
             raise ValueError(f"positions [{pos_offset}, {pos_offset + n}) outside max_seq "
                              f"{self.cfg.max_seq}")
-        x = self.embed(tokens)
-        x = x + self.pos_embed[pos_offset:pos_offset + n].to(BF16)
+        return self.embed(tokens) + self.pos_embed[pos_offset:pos_offset + n].to(BF16)
+
+    def run_blocks(self, x: torch.Tensor):
+        """(x, aux): ``x`` through this module's blocks, each recomputed in
+        the backward when ``cfg.remat`` is set, and the MoE blocks' aux
+        losses in block order."""
         aux = []
         for block in self.blocks:
             if self.cfg.remat and torch.is_grad_enabled():
@@ -433,7 +449,12 @@ class TransformerLM(nn.Module):
                 x, a = block(x)
             if a is not None:
                 aux.append(a)
-        return self.lm_head(self.tp.copy(self.ln_f(x))).float(), aux
+        return x, aux
+
+    def head(self, x: torch.Tensor) -> torch.Tensor:
+        """The final LayerNorm and the f32 logits (flax's ``LMHead``, the
+        pipeline's last boundary)."""
+        return self.lm_head(self.tp.copy(self.ln_f(x))).float()
 
 
 def model_config(name: str, attn_fn: Optional[Callable] = None) -> "ModelConfig | CnnConfig":

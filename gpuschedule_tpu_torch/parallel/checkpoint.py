@@ -25,7 +25,12 @@ A checkpoint holds one flat dict of tensors (:func:`state_dict`):
   trainer, as they do there.
 
 Any dp x sp x tp layout restores onto any other: the target trainer
-builds its own state and the values are loaded into it.  Over a dp x sp
+builds its own state and the values are loaded into it.  A pipeline's
+state (:class:`~gpuschedule_tpu_torch.parallel.pipeline.PipelinedLM`)
+enters the dict under the whole model's names (a stage's block i is
+block ``first_layer + i``), so a checkpoint of any pp layout holds the
+one-rank model's keys, each rank writes and reads its stage's blocks, and
+the replicated embedding and head are written once.  Over a dp x sp
 mesh every rank holds the whole state.  Over tp a split parameter and its
 moments are entered as ``DTensor``s of the rank's shard (``Shard`` on the
 partition table's dim over the mesh's tp axis, replicated over the
@@ -33,11 +38,12 @@ others), so the checkpoint holds each whole tensor at its global shape
 and ``torch.distributed.checkpoint`` reads into each target shard just
 its slice, whatever layout wrote it.  Over several ranks it gathers the
 ranks' plans on the default group and writes each replicated tensor (and
-each shard) once.  A pp layout is not ported and raises.
+each shard) once.
 """
 
 from __future__ import annotations
 
+import re
 import shutil
 import warnings
 from contextlib import contextmanager
@@ -47,6 +53,7 @@ from typing import Dict
 import torch
 import torch.distributed as dist
 
+from gpuschedule_tpu_torch.parallel.pipeline import whole_names
 from gpuschedule_tpu_torch.parallel.tp import NO_TP, Tp, param_partition_spec
 from gpuschedule_tpu_torch.parallel.train import Optimizer, TrainState
 
@@ -76,15 +83,6 @@ def _one_process_quietly():
     with warnings.catch_warnings():
         warnings.filterwarnings("ignore", message="torch.distributed is disabled")
         yield
-
-
-def _check_layout(trainer) -> None:
-    pp = trainer.mesh.shape["pp"]
-    if pp > 1:
-        raise NotImplementedError(
-            f"pp={pp}: checkpoints of a pp layout are not ported; they wait for the "
-            "pipeline (ROADMAP.md, Queue 1)"
-        )
 
 
 def _split(state: TrainState):
@@ -173,14 +171,32 @@ def state_dict(state: TrainState, *, materialize: bool = False) -> Dict[str, tor
     out["optimizer.count"] = torch.tensor(opt.schedule.last_epoch, dtype=torch.int64)
     out.update({f"optimizer.{k}": torch.tensor(v, dtype=torch.int64)
                 for k, v in _flags(opt).items()})
-    return out
+    return whole_names(out, state.first_layer)
 
 
-def _check_structure(template: Dict[str, torch.Tensor], shapes: Dict[str, tuple], where) -> None:
+def _whole_shapes(state: TrainState, template: Dict[str, torch.Tensor]) -> Dict[str, tuple]:
+    """The keys and shapes of the whole model's dict of which ``template``
+    (:func:`state_dict` of ``state``) is a rank's: a pipeline stage's
+    blocks stand for every block of the model, which all have one form."""
+    shapes = {k: tuple(v.shape) for k, v in template.items()}
+    if state.mesh is None or state.mesh.shape["pp"] == 1:
+        return shapes
+    n_layers = state.model.cfg.n_layers
+    whole = {}
+    for k, shape in shapes.items():
+        m = re.match(r"(model|optimizer)\.blocks\.(\d+)\.(.*)$", k)
+        if m is None:
+            whole[k] = shape
+        else:
+            whole.update({f"{m[1]}.blocks.{i}.{m[3]}": shape for i in range(n_layers)})
+    return whole
+
+
+def _check_structure(template: Dict[str, tuple], shapes: Dict[str, tuple], where) -> None:
     missing = sorted(set(template) - set(shapes))
     extra = sorted(set(shapes) - set(template))
     wrong = sorted(k for k in set(template) & set(shapes)
-                   if tuple(template[k].shape) != tuple(shapes[k]))
+                   if tuple(template[k]) != tuple(shapes[k]))
     if missing or extra or wrong:
         detail = "; ".join(f"{what}: {keys[:4]}{' ...' if len(keys) > 4 else ''}"
                            for what, keys in (("missing", missing), ("unexpected", extra),
@@ -202,11 +218,12 @@ def _finish(state: TrainState, template: Dict[str, torch.Tensor], where) -> Trai
 
 def load_state_dict(trainer, sd: Dict[str, torch.Tensor]) -> TrainState:
     """A new state on ``trainer`` holding the values of ``sd`` (the form
-    :func:`state_dict` gives, on any device): the in-memory restore."""
-    _check_layout(trainer)
+    :func:`state_dict` gives of the whole model, on any device): the
+    in-memory restore."""
     state = trainer.init(seed=0)
     template = state_dict(state, materialize=True)
-    _check_structure(template, {k: tuple(v.shape) for k, v in sd.items()}, "the state")
+    _check_structure(_whole_shapes(state, template), {k: tuple(v.shape) for k, v in sd.items()},
+                     "the state")
     with torch.no_grad():
         for k, t in template.items():
             _copy_into(t, sd[k])
@@ -254,14 +271,13 @@ def restore_state(trainer, path) -> TrainState:
     from torch.distributed.checkpoint import FileSystemReader
     from torch.distributed.checkpoint import load as dcp_load
 
-    _check_layout(trainer)
     path = Path(path).absolute()
     reader = FileSystemReader(str(path))
     metadata = reader.read_metadata()
     state = trainer.init(seed=0)
     template = state_dict(state, materialize=True)
     where = f"checkpoint at {path}"
-    _check_structure(template, {k: tuple(getattr(m, "size", ()))
+    _check_structure(_whole_shapes(state, template), {k: tuple(getattr(m, "size", ()))
                                 for k, m in metadata.state_dict_metadata.items()}, where)
     with _one_process_quietly():
         dcp_load(template, storage_reader=reader, no_dist=not _distributed())

@@ -17,9 +17,14 @@ smaller meshes: :func:`sub_mesh` lays one over the first k ranks, every
 rank building its groups and the ranks outside it getting None.
 
 Besides the axes' groups a mesh of several ranks has a *data group*:
-the dp x sp ranks that share this rank's tp coordinate, over which the
-gradients, the loss and the MoE's token counts are summed (the tp ranks
-hold shards of one model, not replicas).
+the dp x sp ranks that share this rank's pp and tp coordinates, over which
+the gradients, the loss and the MoE's token counts are summed (the tp
+ranks hold shards of one model, the pp ranks its stages, not replicas).
+The pp axis's group (``group("pp")``) is a pipeline's *stage line*: the
+ranks of one dp column along pp, which exchange the boundary activations
+(:mod:`.pipeline`).  ``init_device_mesh`` makes the axes' groups and
+:func:`_build` the data groups in one order on every rank, as a group
+must be made by every rank of the world.
 """
 
 from __future__ import annotations

@@ -6,8 +6,11 @@ with named shardings; this one runs one rank of a :class:`Mesh` a process.
 
 - **dp**: each rank takes its rows of the global batch.
 - **sp**: with ``seq_shard`` (which ``ring_attn`` needs) each rank takes its
-  chunk of the sequence, and the ring (``ring_attention``, or
-  ``ring_flash_attention`` with ``flash_attn``) attends across the chunks.
+  chunk of the sequence.  The ring (``ring_attention``, or
+  ``ring_flash_attention`` with ``flash_attn``) attends across the chunks;
+  without ``ring_attn`` the dense core attends over the sequence gathered
+  over sp (:func:`~gpuschedule_tpu_torch.parallel.gathered.gathered_attention`),
+  as the JAX trainer's GSPMD does.
 - **tp**: the model splits over the tp ranks by the JAX partition table
   (:func:`~gpuschedule_tpu_torch.parallel.tp.param_partition_spec`):
   megatron's column and row splits with the collectives of
@@ -19,7 +22,9 @@ with named shardings; this one runs one rank of a :class:`Mesh` a process.
   this rank's tp coordinate (``all_reduce``): together the JAX step's mean
   and psum.  The global-norm clip sums the split parameters' squares over
   tp and counts each replicated parameter once.
-- **pp** is not ported (``NotImplementedError``, ROADMAP.md).
+- **pp** is the pipeline's own trainer,
+  :class:`~gpuschedule_tpu_torch.parallel.pipeline.PipelinedLM`, as in the
+  JAX package; this one takes meshes with pp = 1.
 
 The three model families of the zoo train here: the dense LM; the MoE LM,
 whose blocks' aux losses are charged at ``moe_aux_weight`` and which over
@@ -29,10 +34,12 @@ whose batch is an ``(images, labels)`` pair and whose loss is the softmax
 cross-entropy over integer labels (its tp ranks hold replicas: the table
 splits none of its parameters).
 
-On one rank and on the card the step is one captured program, as the JAX
-step is one ``jit`` program: forward, backward, clip and adamw replay as
-one CUDA graph (:meth:`ShardedTrainer.step`).  On the CPU, and on more
-than one rank, it runs eagerly.
+On the card the step is one captured program, as the JAX step is one
+``jit`` program: forward, backward, the data group's gradient and loss
+all-reduces, clip and adamw replay as one CUDA graph
+(:meth:`ShardedTrainer.step`), on one rank and over a mesh whose groups
+are NCCL's.  On the CPU, and over gloo groups (which a graph cannot hold),
+it runs eagerly.
 
 Optimizer parity with optax (read from the installed optax 0.2.6):
 ``optax.adamw`` decays every parameter with ``weight_decay=1e-4`` (torch's
@@ -200,10 +207,10 @@ def make_optimizer(
                      tp=tp, sharded=frozenset(id(p) for p in sharded))
 
 
-def _all_reduce_grads(model: torch.nn.Module, group) -> None:
-    """Sum every parameter's gradient over ``group`` in one flat all-reduce
-    (a parameter without one counts as zeros)."""
-    params = list(model.parameters())
+def _all_reduce_grads(params: Iterable[torch.nn.Parameter], group) -> None:
+    """Sum each of ``params``' gradients over ``group`` in one flat
+    all-reduce (a parameter without one counts as zeros)."""
+    params = list(params)
     grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
     flat = torch.cat([g.reshape(-1) for g in grads])
     dist.all_reduce(flat, group=group)
@@ -216,11 +223,37 @@ def _all_reduce_grads(model: torch.nn.Module, group) -> None:
 @dataclass
 class TrainState:
     """What the JAX trainer carries as ``(params, opt_state)``, and the mesh
-    its shards lie on (None: the whole state on one rank)."""
+    its shards lie on (None: the whole state on one rank).  A pipeline
+    stage's model holds blocks ``first_layer`` on of the whole model's."""
 
     model: torch.nn.Module
     optimizer: Optimizer
     mesh: Optional[Mesh] = None
+    first_layer: int = 0
+
+
+def traced_step(step_fn, state, batch, n_tokens: int):
+    """``step_fn(state, batch)``, recorded as a ``train.step`` span with the
+    JAX trainer's attributes when the tracer is on (``GSTPU_TRACE=1``),
+    fenced by a readback of the loss; with it off, the step alone."""
+    tracer = get_tracer()
+    if not tracer.enabled:
+        return step_fn(state, batch)
+    t0 = time.perf_counter()
+    state, loss = step_fn(state, batch)
+    loss_val = float(loss)  # fence: the readback makes the wall time real
+    dt = time.perf_counter() - t0
+    tracer.record(
+        "train.step",
+        wall_start=t0,
+        wall_dur=dt,
+        cat="train",
+        step_time_s=round(dt, 6),
+        tokens=n_tokens,
+        tokens_per_s=round(n_tokens / dt, 1) if dt > 0 else None,
+        loss=loss_val,
+    )
+    return state, loss
 
 
 Batch = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
@@ -282,10 +315,8 @@ class ShardedTrainer:
         elif device is not None and torch.device(device).type != mesh.device.type:
             raise ValueError(f"device {device!r} is not the mesh's {mesh.device}")
         if mesh.shape["pp"] > 1:
-            raise NotImplementedError(
-                f"pp={mesh.shape['pp']}: only dp, sp and tp meshes are ported; pipeline "
-                "parallelism is queued in ROADMAP.md"
-            )
+            raise ValueError(f"pp={mesh.shape['pp']}: a pp mesh trains the staged "
+                             "PipelinedLM (parallel/pipeline.py)")
         attn_fn: Optional[Callable] = None
         if ring_attn and flash_attn:
             # the composition: the sp ring across ranks, the flash kernels within
@@ -323,11 +354,11 @@ class ShardedTrainer:
             raise ValueError("seq_shard applies to LM sequences, not images")
         if seq_shard and seq_len % sp != 0:
             raise ValueError(f"seq {seq_len} not divisible by sp={sp}")
-        if seq_shard and sp > 1 and not ring_attn:
-            raise NotImplementedError(
-                "seq_shard without ring_attn (dense attention over a gathered sequence) is "
-                "not ported; see ROADMAP.md"
-            )
+        if seq_shard and sp > 1 and attn_fn is None:
+            # no ring: the dense core over the sequence gathered over sp
+            from gpuschedule_tpu_torch.parallel.gathered import gathered_attention
+
+            attn_fn = self.attn_fn = partial(gathered_attention, mesh=mesh)
         self.batch_size = batch_size
         self.seq_len = seq_len
         self.learning_rate = learning_rate
@@ -355,6 +386,12 @@ class ShardedTrainer:
         # the same cut, for to_device and prefetch_to_device
         self.batch_sharding = BatchSharding(self.device, self.row0, self.rows,
                                             self.seq_offset, self.local_seq)
+        # a mesh with process groups sums over its data group (a launcher's
+        # mesh, of one rank too); the card captures the step unless the
+        # groups are gloo's, whose host-staged collectives a graph cannot hold
+        self.grouped = mesh.device_mesh is not None
+        self.capturable = self.device.type == "cuda" and (
+            not self.grouped or dist.get_backend(mesh.data_group) == "nccl")
         # the state the graphs below belong to, and its graphs by batch key
         # (None: warmed up, not captured yet)
         self._graph_state: Optional[TrainState] = None
@@ -464,37 +501,24 @@ class ShardedTrainer:
         or dtype captures a new graph, as ``jit`` retraces; a new state
         drops the graphs of the old one.  A capture that fails raises.
 
-        On more than one rank the step runs eagerly (:meth:`_eager_step`):
-        no capture of a step with collectives is checked yet.
+        Over a mesh with process groups the graph holds the data group's
+        gradient and loss all-reduces too, and every collective of the
+        forward and backward (tp's f and g, the sp gather, the MoE's
+        counts): PyTorch lets a graph hold an NCCL collective once its
+        communicator exists, which the warm-up step's collectives make.
+        Over gloo groups the step runs eagerly (:meth:`_eager_step`).
 
         With the tracer on (``GSTPU_TRACE=1``) every step is recorded as a
         ``train.step`` span with the JAX trainer's attributes, fenced by a
         readback of the loss, so tracing serialises the host with the
         device.  Tracing off (the default), the step reads one attribute
         more: no sync, no allocation."""
-        tracer = get_tracer()
-        if not tracer.enabled:
-            return self._step(state, batch)
-        t0 = time.perf_counter()
-        state, loss = self._step(state, batch)
-        loss_val = float(loss)  # fence: the readback makes the wall time real
-        dt = time.perf_counter() - t0
-        n_tokens = self.batch_size * (1 if self.is_image else self.seq_len)
-        tracer.record(
-            "train.step",
-            wall_start=t0,
-            wall_dur=dt,
-            cat="train",
-            step_time_s=round(dt, 6),
-            tokens=n_tokens,
-            tokens_per_s=round(n_tokens / dt, 1) if dt > 0 else None,
-            loss=loss_val,
-        )
-        return state, loss
+        return traced_step(self._step, state, batch,
+                           self.batch_size * (1 if self.is_image else self.seq_len))
 
     def _step(self, state: TrainState, batch: Batch) -> Tuple[TrainState, torch.Tensor]:
         """:meth:`step` untraced."""
-        if self.ranks > 1 or self.device.type != "cuda":
+        if not self.capturable:
             return self._eager_step(state, batch)
         if state is not self._graph_state:
             self._graphs.clear()
@@ -514,20 +538,33 @@ class ShardedTrainer:
         return state, captured.loss.clone()
 
     def _eager_step(self, state: TrainState, batch: Batch) -> Tuple[TrainState, torch.Tensor]:
-        """The step as plain PyTorch calls, one launch at a time.  On more
-        than one rank the gradients and the loss are summed over the mesh's
-        data group before the update (the JAX step's psum): every replica
-        makes the same update, every rank returns the global mean loss."""
+        """The step as plain PyTorch calls, one launch at a time."""
         state.optimizer.zero_grad()
+        loss = self._update(state, batch)
+        state.optimizer.schedule.step()
+        return state, loss
+
+    def _update(self, state: TrainState, batch: Batch) -> torch.Tensor:
+        """:meth:`loss_and_grads`, then clip and adamw; the loss.  What a
+        captured step's graph holds."""
+        loss = self.loss_and_grads(state, batch)
+        state.optimizer.update()
+        return loss
+
+    def loss_and_grads(self, state: TrainState, batch: Batch) -> torch.Tensor:
+        """The step's loss on ``batch``, its gradients added to each
+        parameter's ``.grad``.  Over a mesh with process groups the
+        gradients and the loss are summed over its data group (the JAX
+        step's psum): every replica holds the same gradients, every rank
+        the global mean loss."""
         loss = self._loss(state.model, batch)
         loss.backward()
-        if self.ranks > 1:
-            _all_reduce_grads(state.model, self.mesh.data_group)
-        state.optimizer.step()
+        if self.grouped:
+            _all_reduce_grads(state.model.parameters(), self.mesh.data_group)
         loss = loss.detach()
-        if self.ranks > 1:
+        if self.grouped:
             dist.all_reduce(loss, group=self.mesh.data_group)
-        return state, loss
+        return loss
 
     def _warm_up(self, state: TrainState, batch: Batch) -> Tuple[TrainState, torch.Tensor]:
         """One eager step on a side stream, as PyTorch asks before a capture."""
@@ -540,14 +577,12 @@ class ShardedTrainer:
         return state, loss
 
     def _capture(self, state: TrainState, batch: Batch) -> _Captured:
-        """Capture forward, backward, clip and adamw on ``batch``'s shapes.
-        Nothing runs while a graph is captured, so the launches the wrappers
-        count meanwhile become the graph's own, counted on its replays."""
+        """Capture :meth:`_update` on ``batch``'s shapes.  Nothing runs while
+        a graph is captured, so the launches the wrappers count meanwhile
+        become the graph's own, counted on its replays."""
         static = _clone(batch)
         state.optimizer.zero_grad()  # the grads are allocated in the graph's pool
         graph = torch.cuda.CUDAGraph()
         with launches.recording() as recorded, torch.cuda.graph(graph):
-            loss = self._loss(state.model, static)
-            loss.backward()
-            state.optimizer.update()
-        return _Captured(graph, static, loss.detach(), recorded)
+            loss = self._update(state, static)
+        return _Captured(graph, static, loss, recorded)

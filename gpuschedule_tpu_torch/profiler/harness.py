@@ -5,9 +5,10 @@ Counterpart of ``gpuschedule_tpu/profiler/harness.py``: ``time_steps``,
 ``profile_model``; and, for single kernels, ``device_ms_per_launch`` (a
 ``torch.profiler`` window) and ``host_us_per_call`` (the launch path).
 Under a launcher the step is measured on (dp, sp, tp) meshes of the first
-k ranks, as the JAX harness measures meshes of the first k devices
-(``_mesh_trainer``): every rank calls, the ranks outside a mesh wait, and
-rank 0's time is every rank's.  PyTorch returns before the device finishes, so
+k ranks, or (pp, dp) meshes with the pipeline's trainer, as the JAX
+harness measures meshes of the first k devices (``_mesh_trainer``): every
+rank calls, the ranks outside a mesh wait, and rank 0's time is every
+rank's.  PyTorch returns before the device finishes, so
 every timed window ends in ``torch.cuda.synchronize()`` (steps) or is read
 from CUDA events (callables).  The JAX package's host-readback fence works
 around its TPU transport and has no counterpart here.  With the tracer on
@@ -21,6 +22,7 @@ from __future__ import annotations
 
 import math
 import statistics
+import sys
 import time
 import warnings
 from pathlib import Path
@@ -33,6 +35,7 @@ from gpuschedule_tpu_torch.cluster.tpu import GENERATIONS
 from gpuschedule_tpu_torch.models import MODEL_CONFIGS
 from gpuschedule_tpu_torch.obs.tracer import get_tracer
 from gpuschedule_tpu_torch.parallel.mesh import sub_mesh, world_size
+from gpuschedule_tpu_torch.parallel.pipeline import PipelinedLM
 from gpuschedule_tpu_torch.parallel.train import ShardedTrainer
 from gpuschedule_tpu_torch.profiler.goodput import (
     CurveCache,
@@ -112,13 +115,14 @@ def device_ms_per_launch(fn, kernel: str, launches: int = 5):
     ``fn`` launches the kernel, so a window whose records hold none of its
     launches lost them (seen on the card: a window of ``probe_copy``
     launches with no record of the kernel): it is taken again, up to
-    WINDOWS windows."""
+    WINDOWS windows, and each lost window is printed to stderr on a line
+    of its own with the kernel it wanted and the names it did see."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(WINDOWS):
+    for window in range(WINDOWS):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(launches):
                 fn()
@@ -131,6 +135,8 @@ def device_ms_per_launch(fn, kernel: str, launches: int = 5):
                     total += evt.time_range.elapsed_us() / 1e3
         if any(kernel in n for n in names):
             return total / launches, sorted(names)
+        print(f"device_ms_per_launch: window {window + 1} of {WINDOWS} lost {kernel!r}: "
+              f"{launches} calls, device records {sorted(names)}", file=sys.stderr, flush=True)
     return None, sorted(names)
 
 
@@ -163,25 +169,41 @@ def _from_rank0(value):
 
 
 def _mesh_trainer(model_name, k, batch_size, seq_len, *, sp=1, tp=1, pp=1,
-                  seq_shard=False, flash_attn=False, warmup=2, device=None):
+                  seq_shard=False, flash_attn=False, warmup=2, num_microbatches=4,
+                  device=None):
     """(trainer, state, batch) on a (dp, sp, tp) mesh of the first ``k``
     ranks, dp taking what sp and tp leave, the batch rounded down to a dp
     multiple (with the JAX harness's warning), after ``warmup`` steps (at
     least the two that warm up and capture a step on one card), fenced;
     None on a rank outside the mesh.  Every rank calls it.  An sp mesh
-    splits the sequence, and the port's sp attention is the dense ring
-    (``ring_attn``; the JAX trainer gathers the sequence instead)."""
-    if pp > 1:
-        raise NotImplementedError(f"pp={pp}: the pipeline trainer is not ported yet "
-                                  "(ROADMAP.md, Queue 1)")
-    if sp < 1 or tp < 1 or k % (sp * tp) != 0:
+    splits the sequence, and its attention is the dense core over the
+    sequence gathered over sp, as the JAX trainer's.  ``pp`` >= 2 builds
+    the :class:`PipelinedLM` on a (pp, dp) mesh instead, with
+    ``num_microbatches`` microbatches and the batch rounded down to a
+    multiple of ``num_microbatches · dp`` (with the JAX harness's warning);
+    the pipeline composes with dp only."""
+    if sp < 1 or tp < 1 or pp < 1 or k % (sp * tp * pp) != 0:
         raise ValueError(f"{k} devices do not factor as dp x sp={sp} x tp={tp} x pp={pp}")
-    dp = k // (sp * tp)
-    mesh = sub_mesh(k, dp=dp, sp=sp, tp=tp, device=device)
+    if pp > 1 and (sp > 1 or tp > 1):
+        raise ValueError(f"pp={pp} composes with dp only; got sp={sp}, tp={tp}")
+    dp = k // (sp * tp * pp)
+    mesh = sub_mesh(k, dp=dp, sp=sp, tp=tp, pp=pp, device=device)
     if mesh is None:
         return None
     bs = batch_size
-    if bs % dp != 0:
+    if pp > 1:
+        # batch must split into M microbatches whose size divides dp
+        bs = max(batch_size - batch_size % (num_microbatches * dp), num_microbatches * dp)
+        if bs != batch_size:
+            warnings.warn(
+                f"batch {batch_size} not divisible by microbatches*dp="
+                f"{num_microbatches * dp}: measuring batch {bs} instead — "
+                f"step times at this k are NOT comparable to ks that kept "
+                f"the requested batch; use a batch size divisible by "
+                f"num_microbatches * every profiled dp",
+                stacklevel=3,
+            )
+    elif bs % dp != 0:
         bs = max(dp, bs - bs % dp)
         # a silent round-down would mix workloads across the fitted ks
         warnings.warn(
@@ -191,8 +213,12 @@ def _mesh_trainer(model_name, k, batch_size, seq_len, *, sp=1, tp=1, pp=1,
             f"size divisible by every profiled k",
             stacklevel=3,
         )
-    trainer = ShardedTrainer(model_name, mesh, batch_size=bs, seq_len=seq_len,
-                             seq_shard=seq_shard, ring_attn=seq_shard, flash_attn=flash_attn)
+    if pp > 1:
+        trainer = PipelinedLM(model_name, mesh, batch_size=bs, seq_len=seq_len,
+                              num_microbatches=num_microbatches, flash_attn=flash_attn)
+    else:
+        trainer = ShardedTrainer(model_name, mesh, batch_size=bs, seq_len=seq_len,
+                                 seq_shard=seq_shard, flash_attn=flash_attn)
     state = trainer.init(seed=0)
     batch = trainer.make_batch(seed=0)
     loss = None
@@ -216,19 +242,21 @@ def measure_step_time(
     pp: int = 1,
     seq_shard: bool = False,
     flash_attn: bool = False,
+    num_microbatches: int = 4,
     device=None,
 ) -> Optional[float]:
     """Median seconds per optimizer step of ``model_name`` (any zoo family;
     ``seq_len`` means nothing to a CNN) on a (dp, sp, tp) mesh of the first
     ``devices`` ranks (default: the world; one device without a launcher),
-    each on ``cuda`` unless ``device="cpu"``, after ``warmup`` steps.
-    Every rank calls it; a rank outside the mesh gets None."""
+    each on ``cuda`` unless ``device="cpu"``, after ``warmup`` steps; with
+    ``pp`` >= 2 the pipeline's step on a (pp, dp) mesh.  Every rank calls
+    it; a rank outside the mesh gets None."""
     k = world_size() if devices is None else devices
     with get_tracer().span("profiler.measure_step_time", cat="profiler", model=model_name,
                            k=k, sp=sp, tp=tp, pp=pp) as sp_:
         built = _mesh_trainer(model_name, k, batch_size, seq_len, sp=sp, tp=tp, pp=pp,
                               seq_shard=seq_shard, flash_attn=flash_attn, warmup=warmup,
-                              device=device)
+                              num_microbatches=num_microbatches, device=device)
         if built is None:
             return None
         trainer, state, batch = built
@@ -246,6 +274,7 @@ def capture_trace(
     steps: int = 3,
     sp: int = 1,
     tp: int = 1,
+    pp: int = 1,
     device=None,
 ) -> str:
     """Write a Chrome trace (``torch.profiler``) of ``steps`` train steps
@@ -254,8 +283,8 @@ def capture_trace(
     The deep-inspection path beside :func:`measure_step_time`: the median
     comes from there, the per-kernel timeline from here.  The traced step is
     the measured one (the same ``_mesh_trainer``: trainer, batch, sequence
-    length, and the (dp, sp, tp) mesh over the world that ``sp`` and ``tp``
-    give), after the two warm-up steps that build and capture it, so on one
+    length, and the (dp, sp, tp) or (pp, dp) mesh over the world that
+    ``sp``, ``tp`` and ``pp`` give), after the two warm-up steps that build and capture it, so on one
     card the window holds replays of the captured step; on the card the
     window records device activity and ends in a synchronize, so every
     step's kernels lie inside it.  Over several ranks every rank steps and
@@ -266,7 +295,8 @@ def capture_trace(
     with get_tracer().span("profiler.capture_trace", cat="profiler", model=model_name,
                            steps=steps):
         trainer, state, batch = _mesh_trainer(model_name, world_size(), batch_size, seq_len,
-                                              sp=sp, tp=tp, seq_shard=sp > 1, device=device)
+                                              sp=sp, tp=tp, pp=pp, seq_shard=sp > 1,
+                                              device=device)
         cuda = trainer.device.type == "cuda"
         activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
         with profile(activities=activities) as prof:
@@ -308,12 +338,13 @@ def profile_model(
     expects), the dp-sync payload per device shrunk by tp; the smooth
     family is fit on the intra-pod points and carries the multislice
     fields; the cache entry (rank 0 writes it) has the same key
-    (``model@sp{sp}tp{tp}`` off the plain dp curve), ``source`` and points.
-    The device is ``cuda`` unless ``device="cpu"``.  ``pp`` above 1 needs
-    the pipeline trainer, which is not ported yet."""
-    if pp > 1:
-        raise NotImplementedError(f"pp={pp}: the pipeline trainer is not ported yet "
-                                  "(ROADMAP.md, Queue 1)")
+    (``model@sp{sp}tp{tp}`` off the plain dp curve, ``model@sp{sp}tp{tp}pp{pp}``
+    for a pipeline), ``source`` and points.  ``pp`` >= 2 measures the
+    pipeline's trainer on (pp, dp) meshes, dp = k / pp; sp and tp stay 1,
+    and the dp-sync payload per device shrinks by pp too (a stage holds
+    1/pp of the layers).  The device is ``cuda`` unless ``device="cpu"``."""
+    if pp > 1 and (sp > 1 or tp > 1):
+        raise ValueError(f"pp={pp} composes with dp only; got sp={sp}, tp={tp}")
     cfg = MODEL_CONFIGS[model_name]
     n_devices = world_size()
     unit = sp * tp * pp  # the smallest k that forms one model replica
@@ -324,7 +355,7 @@ def profile_model(
     def measure(k: int) -> float:
         return _from_rank0(measure_step_time(
             model_name, devices=k, batch_size=batch_size, seq_len=seq_len, sp=sp, tp=tp,
-            seq_shard=sp > 1, device=device))
+            pp=pp, seq_shard=sp > 1, device=device))
 
     with get_tracer().span("profiler.profile_model", cat="profiler", model=model_name,
                            ks=list(ks), generation=generation) as prof_sp:
@@ -339,7 +370,7 @@ def profile_model(
                              "nothing is measurable")
         measured[unit] = measure(unit)
     points = dict(measured)
-    # per-device dp-grad payload: tp splits the parameters
+    # per-device dp-grad payload: tp splits the parameters, pp the layers
     per_chip_params = cfg.param_count // (tp * pp)
     if synth_ks:
         synth = synthesize_step_times(
@@ -363,9 +394,14 @@ def profile_model(
     curve = GoodputCurve(curve.theta, pod_chips=pod,
                          dcn_grad_bytes=dp_gradient_bytes(per_chip_params))
     if cache is not None and _rank() == 0:
-        # sp/tp variants get their own key: the scheduler's replay looks
+        # sp/tp/pp variants get their own key: the scheduler's replay looks
         # curves up by bare model name
-        key = model_name if (sp, tp) == (1, 1) else f"{model_name}@sp{sp}tp{tp}"
+        if (sp, tp, pp) == (1, 1, 1):
+            key = model_name
+        elif pp == 1:
+            key = f"{model_name}@sp{sp}tp{tp}"
+        else:
+            key = f"{model_name}@sp{sp}tp{tp}pp{pp}"
         cache.put(
             key,
             curve,

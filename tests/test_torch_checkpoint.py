@@ -166,13 +166,36 @@ def test_reshard_state_keeps_values():
 
 
 def test_tp_layout_raises(tmp_path):
-    """A pp layout's checkpoint is not ported and raises before anything
-    is read; tp layouts restore (``tests/test_torch_tp_dist.py``)."""
-    pp = SimpleNamespace(mesh=SimpleNamespace(shape={"pp": 2, "dp": 1, "sp": 1, "tp": 1}))
-    state = _trainer().init(seed=0)
-    for fn in (lambda: restore_state(pp, tmp_path), lambda: reshard_state(pp, state)):
-        with pytest.raises(NotImplementedError, match="pp=2: .*pipeline"):
-            fn()
+    """A pp layout's state enters a checkpoint under the whole model's
+    names (a stage's block i is block ``first_layer + i``), so a one-rank
+    checkpoint restores onto a pipeline stage: the stage's blocks, the
+    embedding and the head, each value equal.  A checkpoint of another
+    model raises before anything is read.  tp layouts restore in
+    ``tests/test_torch_tp_dist.py``, pp layouts across ranks in
+    ``tests/test_torch_pipeline_dist.py``."""
+    from gpuschedule_tpu_torch.parallel import make_optimizer
+    from gpuschedule_tpu_torch.parallel.checkpoint import state_dict
+
+    trainer = _trainer()
+    state, _ = trainer.step(trainer.init(seed=0), trainer.make_batch(seed=0))
+    path = save_state(state, tmp_path / "one")
+    mesh = SimpleNamespace(shape={"pp": 2, "dp": 1, "sp": 1, "tp": 1})
+
+    def stage_init(seed=0):
+        stage = trainer.init(seed=seed)
+        stage.model.blocks = stage.model.blocks[1:]  # the second of two stages
+        stage.mesh, stage.first_layer = mesh, 1
+        stage.optimizer = make_optimizer(stage.model.parameters(), 3e-3, **OPT)
+        return stage
+
+    stage = restore_state(SimpleNamespace(init=stage_init, mesh=mesh), path)
+    saved, got = state_dict(state), state_dict(stage)
+    assert "model.blocks.1.attn.query.kernel" in got and "model.blocks.0.ln1.scale" not in got
+    for key, value in got.items():
+        torch.testing.assert_close(value, saved[key], rtol=0, atol=0, msg=key)
+    other = SimpleNamespace(init=lambda seed=0: _trainer("moe-tiny").init(seed=seed), mesh=mesh)
+    with pytest.raises(ValueError, match="optimizer hyperparameters"):
+        restore_state(other, path)
 
 
 @pytest.mark.parametrize("name", ["transformer-tiny", "moe-tiny"])

@@ -77,7 +77,7 @@ def test_scans_cover_the_bench_and_the_card_table():
 
 
 def test_unported_options_raise(tmp_path):
-    """pp stays unported; tp and sp take the JAX package's errors on a
+    """pp, tp and sp take the JAX package's errors on a
     world of one rank (they run in tests/test_torch_ring*.py and
     tests/test_torch_tp*.py, over gloo ranks, the MoE models too), and a
     tp that does not divide the model raises; the trainer's ring
@@ -86,14 +86,12 @@ def test_unported_options_raise(tmp_path):
     the launcher's world."""
     with pytest.raises(SystemExit, match="not divisible by pp\\*sp\\*tp=2"):
         main(["train", "--model", "transformer-tiny", "--tp", "2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        profile_model("transformer-tiny", device="cpu", pp=2)
-    for kw in ({"sp": 2}, {"tp": 2}):
+    for kw in ({"sp": 2}, {"tp": 2}, {"pp": 2}):
         with pytest.raises(ValueError, match=r"ks \[1\] not divisible by sp\*tp\*pp=2"):
             profile_model("transformer-tiny", device="cpu", **kw)
         with pytest.raises(ValueError, match="exceeds the 1 available devices"):
             profile_model("transformer-tiny", ks=(2, 4), device="cpu", **kw)
-    with pytest.raises(SystemExit, match="ROADMAP"):
+    with pytest.raises(SystemExit, match=r"ks \[1\] not divisible by sp\*tp\*pp=2"):
         main(["profile", "--model", "transformer-tiny", "--pp", "2", "--device", "cpu",
               "--curves", str(tmp_path / "c.json")])
     with pytest.raises(SystemExit, match="exceeds the 1 available devices"):
