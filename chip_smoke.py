@@ -183,7 +183,14 @@ Phases, each fatal on failure (exit code 1, no result line):
    pipeline routes), the gradients of one backward within GRAD_TOL of its,
    the losses finite, falling and the same on every rank, K1-K3
    PP_FLASH_PER_STEP a step on every rank of the flash cell by the
-   counters and equal to a profiler window's.  Then, over the same ranks,
+   counters (the stage graphs' replays counted) and equal to a profiler
+   window's.  The pipeline's own step captures each rank's stage compute
+   in CUDA graphs (its exchanges eager between them): its PP_STEPS losses
+   within LOSS_RTOL of an eager pipeline's from the same seed (bit-equal
+   printed), one graph set a rank, the host's launch calls in one step
+   (a profiler window's ``cudaLaunchKernel``, ``cudaGraphLaunch``, ...)
+   fewer captured than eager on every rank, and each rank's peak memory
+   printed beside the eager pipeline's.  Then, over the same ranks,
    the gathered-sequence sp path: SP_CELL on dp 2 x sp 2 (dense attention
    over k and v gathered over sp), its first loss within LOSS_RTOL of
    phase 5's, and ``profile_model(sp=2)`` measuring SP_KS into a
@@ -200,11 +207,29 @@ Phases, each fatal on failure (exit code 1, no result line):
 18. ``entry()`` (``gpuschedule_tpu_torch/entry.py``): the flagship's
    logits on the card within FWD_TOL of the one-rank model's.  An
    ``{"entry": ...}`` line;
+19. the tools (``tools_phase``): in the script's own process, which
+   records the windows of ``tools.window_probe`` hold there (by then the
+   process has shared the card with phases 10-17's processes, and its
+   profiler windows drop device records: ROADMAP Queue 3); then, in a
+   process of its own, the same probe and the port's ``tools.roofline``
+   at MAIN_SHAPE, LONGCTX_SHAPE and TOOLS_SHAPE (executed FLOPs at least
+   the function's, the function's bounds PERF.md's column to four
+   places), K1-K3 at TOOLS_SHAPE (D = 128) against their plain
+   versions within phase 3's bounds and timed beside their bounds and SDPA,
+   ``tools.kernel_bench`` at its two shapes (every row timed, the flash
+   rows through K1-K3 by the counters), ``tools.trace_flash`` (K1-K3 among
+   the flash case's top device operations, each case's device ms within
+   TRACE_RTOL of kernel_bench's) and ``roofline.fit_overhead`` of the
+   measured flash fwd+bwd; the profiler windows each process took and lost
+   and the phase's seconds printed.  A ``{"tools": ...}`` line;
 14. a ``{"train": ...}`` line, a ``{"kernels": [...]}`` line (the five
    kernels and the three f32 forms; K1-K3 with their launches on the MoE +
    flash path, phase 13's path and phases 15's and 16's flash cells too,
-   and their times at phase 15's and 16's shapes), and last the
+   and their times at phase 15's, 16's and 19's shapes), and last the
    ``{"ok": true, "device": {...}}`` line.
+
+The bounds (``bound_ms``) are ``gpuschedule_tpu_torch/tools/roofline.py``'s
+``attention_cost``, ``probe_cost`` and ``bound``.
 
 Exits non-zero when CUDA is unavailable or the port cannot be imported
 (``python3 chip_smoke.py`` in a directory with nothing else of the repo:
@@ -319,7 +344,7 @@ TP_GRAD_RTOL = 5e-2
 ROUTE_GAP = 1e-4  # a route may differ only where the top-k logits nearly tie
 # phase 16: the pipeline (pp 2 x dp 2) on the same MESH_RANKS processes, time-sliced on the
 # card over gloo, as phase 15; (model, batch, seq, microbatches, schedule, flash)
-PP_STEPS = 2
+PP_STEPS = 3  # a warm-up, the stage graphs' capture and replay, a replay
 PP_CELLS = (("transformer-large", 16, 512, 4, "gpipe", False),
             ("transformer-moe", 16, 512, 4, "remat", False),
             ("transformer-long", 4, 4096, 2, "gpipe", True))
@@ -337,6 +362,14 @@ SP_KS = (2, 4)
 # phase 17: the step captured over a one-rank NCCL group
 NCCL_CELL = ("transformer-long", 2, 4096)
 NCCL_STEPS = 5  # a warm-up, the capture and its replay, 3 replays
+# phase 19: the tools (roofline, kernel_bench, trace_flash), in a process of their own
+TOOLS_SHAPE = (2, 4096, 8, 128)  # kernel_bench's and trace_flash's wider head
+# PERF.md's bound column (ms, K1-K3) at MAIN_SHAPE and LONGCTX_SHAPE, to four places
+SECTION6_BOUNDS = {MAIN_SHAPE: (0.0174, 0.0261, 0.0348), LONGCTX_SHAPE: (1.1118, 1.6677, 2.2235)}
+TRACE_RTOL = 0.15  # trace_flash's device ms vs kernel_bench's for the same case
+# the window probe's series in the script's process and in phase 19's own
+PROBE_WINDOWS = 15
+PROBE_FORMS = ("plain", "padded", "settled 0.1 s and padded")
 ROOT = Path(__file__).resolve().parent
 
 
@@ -351,40 +384,6 @@ def check(ok: bool, msg: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def attention_cost(b, s, h, d, causal, esize, kernel, out_esize=None):
-    """(flops, bytes) the kernel's function needs on these inputs: each
-    input read once (``esize`` bytes an element), each output written once
-    (``out_esize``, default ``esize``); causal counts the S(S+1)/2 (row,
-    key) pairs that are not masked.  ``kernel`` is a counter name; the f32
-    forms (``*_f32``) cost what their kernel does."""
-    kernel = kernel.removesuffix("_f32")
-    pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
-    n = b * s * h * d * esize
-    n_out = b * s * h * d * (out_esize or esize)
-    rows = b * h * s * 4
-    if kernel == "flash_fwd":      # QK^T, PV; reads q k v, writes o and lse
-        return 4 * d * pairs, 3 * n + n_out + rows
-    if kernel == "flash_bwd_dq":   # QK^T, dO V^T, ds K; reads q k v dO lse delta, writes dq
-        return 6 * d * pairs, 4 * n + 2 * rows + n_out
-    # QK^T, dO V^T, p^T dO, ds^T q; reads q k v dO lse delta, writes dk dv
-    return 8 * d * pairs, 4 * n + 2 * rows + 2 * n_out
-
-
-def bound(flops, nbytes, peaks):
-    """(ms, what bounds it): the least time the card of ``peaks`` (a
-    ``CARDS`` entry) could take for these bf16 operations and bytes."""
-    t_ops, t_bytes = flops / peaks["bf16_flops"], nbytes / peaks["bytes_per_s"]
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
-
-
-def probe_cost(n, block, kernel):
-    """(flops, bytes) of a probe kernel's function over n (8, block) bf16
-    tiles: x read once, out written once; K5b forms 8 x block outputs of 8
-    products each per tile."""
-    nbytes = 2 * (n * 8 * block * 2)
-    return (0 if kernel == "probe_copy" else 2 * 8 * 8 * block * n), nbytes
 
 
 def ptxas_report(log_text: str) -> dict:
@@ -457,41 +456,43 @@ def hmma_counts(lib_path: str, tool: str) -> dict:
     return counts
 
 
-def profile_steps(torch, trainer, state, tokens, steps: int = 2, kernels=(), feed=None) -> dict:
-    """Device time by kernel over ``steps`` train steps (``torch.profiler``),
-    each on ``tokens`` or, given ``feed``, on the feed's next batch:
-    per-step ms of the top kernels, their sum, the busy share of the
-    profiled window's wall time (the profiler's own overhead lands in the
-    idle share; the caller adds the share of an unprofiled step), and the
-    launches a step of each kernel named in ``kernels``.
-    A failing step fails the run; only a profiler that saw no device
-    activity is recorded as a diagnostic instead."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def profile_steps(torch, trainer, state, tokens, steps: int = 2, kernels=(), feed=None,
+                  windows=None) -> dict:
+    """Device time by kernel over ``steps`` train steps in a profiler window
+    (``device_window``: pads and a marker first, a lost window taken again
+    up to ``windows`` windows, by default the harness's WINDOWS; ranks that
+    step together, and a feed of a fixed length, pass 1), each step on
+    ``tokens`` or, given ``feed``, on the feed's next batch: per-step ms of
+    the top kernels, their sum, the busy share of the profiled window's
+    wall time (the profiler's own overhead lands in the idle share; the
+    caller adds the share of an unprofiled step), the launches a step of
+    each kernel named in ``kernels``, and ``steps_run``, the steps of every
+    window taken (a caller's launch counters count them all).  A failing
+    step, and a run of lost windows, fail the run."""
+    from gpuschedule_tpu_torch.profiler.harness import WINDOWS, LostWindow, device_window
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            state, _ = trainer.step(state, tokens if feed is None else next(feed))
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    box = [state]
+
+    def step():
+        box[0], _ = trainer.step(box[0], tokens if feed is None else next(feed))
+
+    try:
+        win = device_window(step, steps, what="profile_steps", windows=windows or WINDOWS,
+                            warm=False)
+    except LostWindow as e:
+        raise SmokeFailure(str(e)) from None
     by_name: dict = {}
     counts = {k: 0 for k in kernels}
-    for evt in prof.events():
-        # device activity only: GPU-side user annotations (the optimizer's
-        # range) overlap the kernels they contain
-        if evt.device_type == DeviceType.CUDA and not getattr(evt, "is_user_annotation", False):
-            by_name[evt.name] = by_name.get(evt.name, 0.0) + evt.time_range.elapsed_us() / 1e3
-            for k in kernels:
-                counts[k] += k in evt.name
-    if not by_name:
-        return {"error": "the profiler recorded no device activity"}
+    for rec in win.device:
+        by_name[rec.name] = by_name.get(rec.name, 0.0) + rec.us / 1e3
+        for k in kernels:
+            counts[k] += k in rec.name
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     return {
-        "steps": steps, "wall_ms_per_step": wall_ms / steps,
-        "device_ms_per_step": busy / steps, "busy_share": busy / wall_ms,
+        "steps": steps, "steps_run": steps * (win.lost + 1),
+        "wall_ms_per_step": win.wall_ms / steps,
+        "device_ms_per_step": busy / steps, "busy_share": busy / win.wall_ms,
         "top": [{"kernel": n[:90], "ms_per_step": t / steps, "share": t / busy} for n, t in top],
         "launches_per_step": {k: c / steps for k, c in counts.items()},
     }
@@ -643,6 +644,7 @@ def probe_sweeps(torch, dev, n, ms, peaks):
     from gpuschedule_tpu_torch.ops import overhead_probe as op
     from gpuschedule_tpu_torch.tools import overhead_probe as probe_tool
     from gpuschedule_tpu_torch.tools.probe_costs import probe_input, wrapper_costs
+    from gpuschedule_tpu_torch.tools.roofline import bound, probe_cost
 
     op.reset_launches()                           # the probe's main path starts here
     for kernel, name, parallel in probe_tool.SWEEPS:
@@ -792,7 +794,7 @@ def longctx_profile(torch, fa, step_ms) -> dict:
     check("device_ms_per_step" in prof, f"long-context step profile: {prof}")
     prof["busy_share_of_step"] = prof["device_ms_per_step"] / step_ms
     log(f"long-context step profile: {json.dumps(prof)}")
-    window = {name: (fa.LAUNCHES[name] - before[name]) / prof["steps"] for name in KERNELS}
+    window = {name: (fa.LAUNCHES[name] - before[name]) / prof["steps_run"] for name in KERNELS}
     seen = {name: prof["launches_per_step"][KERNELS[name][0]] for name in KERNELS}
     log(f"launches a replayed long-context step: counters {window}, profiler {seen}, "
         f"expected {LONGCTX_PER_STEP}")
@@ -814,6 +816,7 @@ def longctx_kernels(torch, fa, dev, ms, peaks, F) -> dict:
     fault confined to late tiles: ``scripts/longctx_fault_check.py`` plants
     such faults and shows that they fail it."""
     from gpuschedule_tpu_torch.profiler import time_callable
+    from gpuschedule_tpu_torch.tools.roofline import attention_cost, bound
 
     b, s, h, d = LONGCTX_SHAPE
     errs = kernel_parity(torch, fa, dev, LONGCTX_SHAPE, torch.bfloat16, True, 400)
@@ -862,6 +865,7 @@ def f32_forms(torch, fa, dev, ms, peaks, F) -> dict:
     outputs: 4 bytes an element written), SDPA's forward and SDPA's flash
     backward (bf16 outputs: the nearest library call)."""
     from gpuschedule_tpu_torch.profiler import time_callable
+    from gpuschedule_tpu_torch.tools.roofline import attention_cost, bound
 
     f32, bf16 = torch.float32, torch.bfloat16
     errs = {name: 0.0 for name in F32_FORMS}
@@ -1198,7 +1202,7 @@ def zoo_cell(torch, fa, ms, model, batch, seq, peaks, flash=False) -> dict:
     check(losses[-1] < losses[0], f"{model}: the loss did not fall: {losses}")
     check(capture_rel < LOSS_RTOL, f"{model}: the captured step disagrees with the eager step")
     if flash:
-        window = {name: (fa.LAUNCHES[name] - before[name]) / prof["steps"] for name in KERNELS}
+        window = {name: (fa.LAUNCHES[name] - before[name]) / prof["steps_run"] for name in KERNELS}
         seen = {name: prof["launches_per_step"][KERNELS[name][0]] for name in KERNELS}
         log(f"launches a replayed {model} flash step: counters {window}, profiler {seen}")
         check(seen == window == MOE_FLASH_PER_STEP,
@@ -1393,10 +1397,10 @@ def resume_in_process(torch, fa, data_path, phase5_s, tmp) -> dict:
     finally:
         torch.cuda.set_sync_debug_mode("default")
     before = dict(fa.LAUNCHES)
-    prof = profile_steps(torch, trainer, state, None, feed=fed,
+    prof = profile_steps(torch, trainer, state, None, feed=fed, windows=1,
                          kernels=[KERNELS[name][0] for name in KERNELS])
     check("device_ms_per_step" in prof, f"prefetch-fed step profile: {prof}")
-    window = {name: (fa.LAUNCHES[name] - before[name]) / prof["steps"] for name in KERNELS}
+    window = {name: (fa.LAUNCHES[name] - before[name]) / prof["steps_run"] for name in KERNELS}
     seen = {name: prof["launches_per_step"][KERNELS[name][0]] for name in KERNELS}
     busy = prof["device_ms_per_step"] / (step_s * 1e3)
     state, loss = trainer.step(state, next(fed))
@@ -1890,6 +1894,7 @@ def kernels_at(torch, fa, dev, shape, ms, peaks, F, seed, what) -> dict:
     their bounds, SDPA's forward (K1's yardstick) and SDPA's flash backward
     (K2's and K3's, dq, dk and dv in one call); ``what`` names the shape."""
     from gpuschedule_tpu_torch.profiler import time_callable
+    from gpuschedule_tpu_torch.tools.roofline import attention_cost, bound
 
     b, s, h, d = shape
     parity = kernel_parity(torch, fa, dev, shape, torch.bfloat16, True, seed)
@@ -2035,16 +2040,42 @@ def tp_phase(smi, first_losses, kernels, found) -> dict:
             "kernels": kernels, "cells": cells}
 
 
+def host_launch_calls(fn) -> dict:
+    """{runtime call: count} of the host's calls that launch device work
+    (``cudaLaunchKernel``, ``cuLaunchKernel``, ``cudaGraphLaunch``, ...) in
+    one profiler window of one call of ``fn`` (``device_window`` with the
+    host's records, less the window's own pads and marker).  The ranks
+    step together, so the window is taken once and read for its host
+    records alone: ranks time-sliced on the card drop the first device
+    records of a window (ROADMAP Queue 3), the host's calls none."""
+    from gpuschedule_tpu_torch.profiler import device_window
+    from gpuschedule_tpu_torch.profiler.harness import PAD
+
+    counts: dict = {}
+    for rec in device_window(fn, 1, host=True, what="pp launch calls", check=False).host:
+        if rec.name.startswith("cu") and "Launch" in rec.name:
+            counts[rec.name] = counts.get(rec.name, 0) + 1
+    check(counts.get("cudaLaunchKernel", 0) > PAD + 1,
+          f"a window without the step's host launch calls: {counts}")
+    counts["cudaLaunchKernel"] -= PAD + 1
+    return counts
+
+
 def _pp_checks(torch, dist) -> dict:
     """Phase 16 on one rank (:func:`rank_worker`): ``make_mesh(pp=2)``
     (dp 2) and PP_CELLS' pipelines from seed 0 on their seed-0 global
-    batches.  Before the steps, on the dp column 0 ranks (one a stage, the
-    two at once), the loss and gradients of one backward against the
-    one-rank computation: the whole model from the same seed, its blocks
-    in sequence (``reference_loss``; for the MoE on each (microbatch, dp
-    column) share, as the pipeline routes).  Then PP_STEPS steps, K1-K3 by
-    the counters, and on the flash cell a profiler window of two steps.
-    Then the gathered-sequence sp point (:func:`_sp_point`)."""
+    batches.  First the eager pipeline: on the dp column 0 ranks (one a
+    stage, the two at once) the loss and gradients of one backward against
+    the one-rank computation: the whole model from the same seed, its
+    blocks in sequence (``reference_loss``; for the MoE on each
+    (microbatch, dp column) share, as the pipeline routes); PP_STEPS eager
+    steps (``_eager_step``), the host's launch calls of one more, and the
+    peak memory.  Then, from seed 0 again, the pipeline's own step, whose
+    stage compute the card captures: PP_STEPS steps (a warm-up, the
+    capture and its replay, a replay), K1-K3 by the counters, the host's
+    launch calls of a replayed step, on the flash cell a profiler window
+    of two steps, and the peak.  Then the gathered-sequence sp point
+    (:func:`_sp_point`)."""
     from gpuschedule_tpu_torch.data import synthetic_lm_batches
     from gpuschedule_tpu_torch.models import build_model
     from gpuschedule_tpu_torch.parallel import PipelinedLM, make_mesh
@@ -2077,6 +2108,17 @@ def _pp_checks(torch, dist) -> dict:
             cell.update(reference_loss=ref.item(), grad_err={"max": errs[worst], "worst": worst})
             del whole, ref, grads
             torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()  # the eager pipeline's peak, not the reference's
+        eager = []
+        for _ in range(PP_STEPS):
+            state, loss = trainer._eager_step(state, data)
+            eager.append(loss.item())
+        cell["eager_launch_calls"] = host_launch_calls(lambda: trainer._eager_step(state, data))
+        cell.update(eager_losses=eager, eager_peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        del state
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = trainer.init(seed=0)
         torch.cuda.synchronize()
         fa.reset_launches()                       # this cell's path starts here
         losses, step_ms = [], []
@@ -2086,11 +2128,13 @@ def _pp_checks(torch, dist) -> dict:
             losses.append(loss.item())            # a readback: the step is done
             step_ms.append((time.perf_counter() - t0) * 1e3)
         cell["launches"] = dict(fa.LAUNCHES)      # ... and ends here
+        cell["graphs"] = sum(g is not None for g in trainer._graphs.values())
+        cell["launch_calls"] = host_launch_calls(lambda: trainer.step(state, data))
         if flash:
             before = dict(fa.LAUNCHES)
-            prof = profile_steps(torch, trainer, state, data,
+            prof = profile_steps(torch, trainer, state, data, windows=1,
                                  kernels=[KERNELS[name][0] for name in KERNELS])
-            cell["window"] = {"counters": {n: (fa.LAUNCHES[n] - before[n]) / prof.get("steps", 1)
+            cell["window"] = {"counters": {n: (fa.LAUNCHES[n] - before[n]) / prof["steps_run"]
                                            for n in KERNELS},
                               "profiler": {n: prof.get("launches_per_step", {}).get(
                                   KERNELS[n][0]) for n in KERNELS}}
@@ -2147,7 +2191,10 @@ def pp_phase(smi, first_losses, kernels, found) -> dict:
     the gradients of one backward within GRAD_TOL of its (each tensor's
     largest entry), the losses finite, falling and the same on every rank,
     and on the flash cell K1-K3 PP_FLASH_PER_STEP a step on every rank by
-    the counters, equal to the profiler's.  The gathered sp point: each
+    the counters, equal to the profiler's; the pipeline's step with its
+    stage compute captured: one graph set a rank, its losses within
+    LOSS_RTOL of the eager pipeline's, fewer host launch calls in a step
+    than the eager step's on every rank.  The gathered sp point: each
     first loss within LOSS_RTOL of the one-rank trainer's (``first_losses``),
     the losses finite and falling, the core ``gathered_attention``, the
     curve's key ``model@sp2tp1`` with SP_KS measured.  The step times are
@@ -2180,12 +2227,36 @@ def pp_phase(smi, first_losses, kernels, found) -> dict:
                                f"computation's")
         check(all(e["max"] < GRAD_TOL for e in grad_errs),
               f"pp {model}: a gradient disagrees with the one-rank computation's: {grad_errs}")
+        eager = per_rank[0]["eager_losses"]
+        cap_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, eager))
+        bitwise = all(c["losses"] == c["eager_losses"] for c in per_rank)
+        calls = [{"eager": sum(c["eager_launch_calls"].values()),
+                  "captured": sum(c["launch_calls"].values())} for c in per_rank]
+        log(f"pp {model}: the stage compute captured ({[c['graphs'] for c in per_rank]} "
+            f"graph set(s) a rank): losses {losses} vs eager {eager} (max rel {cap_rel:.2e}, "
+            f"bound {LOSS_RTOL}; bit-equal on every rank: {bitwise}); host launch calls in "
+            f"one step, eager vs captured, a rank {calls} (rank 0: "
+            f"{per_rank[0]['eager_launch_calls']} vs {per_rank[0]['launch_calls']}); peak "
+            f"GiB a rank, eager {[round(c['eager_peak_gib'], 2) for c in per_rank]} vs "
+            f"captured {[round(c['peak_gib'], 2) for c in per_rank]}")
+        check(all(c["graphs"] == 1 for c in per_rank),
+              f"pp {model}: the stage compute was not captured on every rank")
+        check(cap_rel < LOSS_RTOL, f"pp {model}: the captured pipeline's losses disagree with "
+                                   f"the eager pipeline's")
+        check(all(c["captured"] < c["eager"] for c in calls),
+              f"pp {model}: a captured step made no fewer host launch calls than an eager one: "
+                 f"{calls}")
         cell = {"model": model, "batch": batch, "seq": seq, "microbatches": m,
                 "schedule": schedule, "flash": flash, "losses": losses,
                 "reference_loss": refs[0]["reference_loss"], "first_loss_rel": rel,
                 "grad_err": grad_errs, "step_ms": [c["step_ms"] for c in per_rank],
                 "step_ms_label": PP_LABEL, "local_batch": per_rank[0]["local_batch"],
-                "peak_gib": [c["peak_gib"] for c in per_rank]}
+                "eager_losses": eager, "captured_vs_eager_loss_rel": cap_rel,
+                "bitwise": bitwise, "launch_calls": calls,
+                "launch_calls_rank0": {"eager": per_rank[0]["eager_launch_calls"],
+                                       "captured": per_rank[0]["launch_calls"]},
+                "peak_gib": [c["peak_gib"] for c in per_rank],
+                "eager_peak_gib": [c["eager_peak_gib"] for c in per_rank]}
         if flash:
             per_step = [{n: c["launches"][n] / PP_STEPS for n in KERNELS} for c in per_rank]
             windows = [c["window"] for c in per_rank]
@@ -2233,36 +2304,18 @@ def _nccl_checks(torch, port: int) -> dict:
     a profiler window of a replay; then what NCCL launches for a one-rank
     sum and average, eagerly and replayed from a captured graph."""
     import torch.distributed as dist
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from gpuschedule_tpu_torch.parallel import ShardedTrainer, make_mesh
-    from gpuschedule_tpu_torch.profiler.harness import WINDOWS
+    from gpuschedule_tpu_torch.profiler import device_window
 
     def device_kernels(fn, n=3):
-        """{kernel: launches} of ``n`` calls of ``fn`` in a profiler window
-        that also holds a marker kernel (``torch.cuda._sleep``'s spin): a
-        window without the marker lost its device records and is taken
-        again, up to WINDOWS, each lost one printed; the marker is left out."""
-        fn()
-        torch.cuda.synchronize()
-        for window in range(WINDOWS):
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                torch.cuda._sleep(1000)
-                for _ in range(n):
-                    fn()
-                torch.cuda.synchronize()
-            names = {}
-            for evt in prof.events():
-                if evt.device_type == DeviceType.CUDA and not getattr(
-                        evt, "is_user_annotation", False):
-                    names[evt.name[:120]] = names.get(evt.name[:120], 0) + 1
-            marker = [k for k in names if "spin" in k]
-            if marker:
-                return {k: v for k, v in names.items() if k not in marker}
-            print(f"nccl phase: window {window + 1} of {WINDOWS} lost the marker kernel: "
-                  f"device records {sorted(names)}", file=sys.stderr, flush=True)
-        raise SmokeFailure(f"{WINDOWS} profiler windows in a row lost their device records")
+        """{kernel: launches} of ``n`` calls of ``fn`` in one profiler
+        window (``device_window``: a window without its marker kernel lost
+        its device records and is taken again, each lost one printed)."""
+        names = {}
+        for rec in device_window(fn, n, what="nccl phase").device:
+            names[rec.name[:120]] = names.get(rec.name[:120], 0) + 1
+        return names
 
     torch.cuda.set_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2378,6 +2431,125 @@ def entry_phase(torch) -> dict:
     return out
 
 
+def _tools_checks(torch) -> dict:
+    """Phase 19's tools, in a process of its own (:func:`tools_worker`):
+    ``roofline.analyze`` at MAIN_SHAPE, LONGCTX_SHAPE and TOOLS_SHAPE:
+    executed FLOPs at least the function's, the function's
+    bounds SECTION6_BOUNDS; K1-K3 at TOOLS_SHAPE against their plain
+    versions within phase 3's bounds and timed (:func:`kernels_at`);
+    ``kernel_bench.run`` at its two shapes: every row's ms positive, the
+    flash rows' launches K1 (fwd) or K1-K3 (fwd+bwd) once a call;
+    ``trace_flash``: the flash case's top device operations name K1-K3,
+    and each case's device ms within TRACE_RTOL of kernel_bench's;
+    ``roofline.fit_overhead`` of the measured flash fwd+bwd.  First, which
+    records the windows of ``tools.window_probe`` hold in this process; the
+    windows the tools took and lost are printed."""
+    import torch.nn.functional as F
+
+    from gpuschedule_tpu_torch.cluster.cards import CARDS, detect_card, nvidia_smi_line
+    from gpuschedule_tpu_torch.profiler import time_callable
+    from gpuschedule_tpu_torch.profiler.harness import TALLY
+    from gpuschedule_tpu_torch.tools import kernel_bench, roofline, trace_flash, window_probe
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fa = importlib.import_module("gpuschedule_tpu_torch.ops.flash_attention")
+    smi, dev = nvidia_smi_line(), torch.device("cuda")
+    peaks = CARDS[detect_card(torch.cuda.get_device_name(0))]
+    ms = lambda fn, iters=20: time_callable(fn, iters=iters, warmup=3, device=dev) * 1e3  # noqa: E731
+    probe = window_probe.Probe().series("phase 19's own process", PROBE_WINDOWS, PROBE_FORMS)
+    log(f"phase 19: windows of the window probe in its own process holding each kind of "
+        f"record: {json.dumps(probe)}")
+    before = dict(TALLY)
+    analyses = {}
+    for shape in (MAIN_SHAPE, LONGCTX_SHAPE, TOOLS_SHAPE):
+        a = analyses[shape] = roofline.analyze(*shape)
+        fn_bounds = tuple(a["function"][k]["bound_ms"] for k in roofline.KERNELS)
+        log(f"roofline {shape}: executed {sum(a['executed_gflops'].values()):.1f} GFLOP, "
+            f"{a['executed_over_function_flops']:.4f}x the function's; executed roofline "
+            f"fwd+bwd {a['roofline_fwdbwd_ms']:.4f} ms, the function's bounds "
+            f"{[round(x, 4) for x in fn_bounds]} ms; tile traffic over HBM bytes "
+            f"{ {k: round(b['tile_traffic_over_hbm'], 1) for k, b in a['bounds_ms'].items()} }")
+        check(a["executed_over_function_flops"] >= 1,
+              f"roofline {shape}: executed FLOPs below the function's")
+        if shape in SECTION6_BOUNDS:
+            check(tuple(round(x, 4) for x in fn_bounds) == SECTION6_BOUNDS[shape],
+                  f"roofline {shape}: bounds {fn_bounds} are not PERF.md's "
+                  f"{SECTION6_BOUNDS[shape]}")
+    kernels = kernels_at(torch, fa, dev, TOOLS_SHAPE, ms, peaks, F, 1900, "the tools' D = 128")
+    rows = []
+    for shape in kernel_bench.SHAPES:
+        rows += kernel_bench.run(*shape, torch.bfloat16, dev)
+    check(all(r["ms"] > 0 for r in rows), "kernel_bench: a row has no time")
+    fwd_bwd = {"flash_fwd": 1.0, "flash_bwd_dq": 1.0, "flash_bwd_dkdv": 1.0}
+    for r in rows:
+        if " flash " in r["case"]:
+            want = fwd_bwd if "fwd+bwd" in r["case"] else {**dict.fromkeys(fwd_bwd, 0.0),
+                                                           "flash_fwd": 1.0}
+            check(r["route"] == "cuda" and r["launches"] == want,
+                  f"kernel_bench {r['case']}: launches {r['launches']}, not {want}")
+    traced = trace_flash.main([])
+    by_case = {r["case"].split(" ", 2)[2]: r for r in rows if r["case"].startswith("b2s4096h8d128")}
+    for rec in traced:
+        top = rec["top_device_ops_ms_per_iter"]
+        bench_ms = by_case[rec["case"]]["device_ms"]
+        gap = rec["device_ms_per_iter"] / bench_ms - 1
+        log(f"trace_flash {rec['case']}: {rec['device_ms_per_iter']:.4f} device ms an iteration "
+            f"vs kernel_bench's {bench_ms:.4f} ({gap:+.2%}, bound {TRACE_RTOL:.0%}); top "
+            f"{json.dumps(top)}")
+        check(abs(gap) <= TRACE_RTOL, f"trace_flash {rec['case']}: device ms off kernel_bench's")
+        if rec["case"].startswith("flash"):
+            check(all(any(k in op for op in top) for k in TENSOR_CORE_KERNELS),
+                  f"trace_flash {rec['case']}: the top device operations do not name K1-K3")
+    flash = by_case[trace_flash.TRACED[1]]
+    fit = roofline.fit_overhead(flash["device_ms"], analyses[TOOLS_SHAPE])
+    log(f"fit_overhead {TOOLS_SHAPE} flash fwd+bwd: {json.dumps(fit)}")
+    windows = {k: TALLY[k] - before[k] for k in TALLY}
+    log(f"phase 19: the tools took {windows['taken']} profiler windows and lost "
+        f"{windows['lost']}")
+    return {"card": smi, "roofline": {str(k): a for k, a in analyses.items()},
+            "kernels": kernels, "kernel_bench": rows, "trace_flash": traced, "fit": fit,
+            "windows": windows, "window_probe": probe}
+
+
+def tools_worker(rank: int, out_dir: str) -> None:
+    """Phase 19's process: a fresh one.  This script's own process has by
+    then shared the card with phases 10-17's processes, and its profiler
+    windows drop device records (ROADMAP Queue 3)."""
+    import torch
+
+    Path(out_dir, "tools.json").write_text(json.dumps(_tools_checks(torch)))
+
+
+def tools_phase(torch, smi) -> dict:
+    """Phase 19: the port's tools.  In the script's own process, after
+    phases 1-18, which records PROBE_WINDOWS windows of each of
+    PROBE_FORMS of ``tools.window_probe`` hold, and the windows the process
+    took and lost so far; then :func:`_tools_checks` in a process of its
+    own; the phase's seconds."""
+    import torch.multiprocessing as mp
+
+    from gpuschedule_tpu_torch.profiler.harness import TALLY
+    from gpuschedule_tpu_torch.tools import window_probe
+
+    t0 = time.perf_counter()
+    probe = window_probe.Probe().series("the script's process after phases 1-18",
+                                        PROBE_WINDOWS, PROBE_FORMS)
+    log(f"phase 19: this process has taken {TALLY['taken']} profiler windows and lost "
+        f"{TALLY['lost']}; windows of the window probe in it holding each kind of record: "
+        f"{json.dumps(probe)}")
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            mp.start_processes(tools_worker, nprocs=1, start_method="spawn", args=(tmp,))
+        except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:
+            raise SmokeFailure(f"the tools' process failed: {e}") from None
+        found = json.loads(Path(tmp, "tools.json").read_text())
+    found.update(card=smi, window_probe_script_process=probe, windows_script_process=dict(TALLY),
+                 phase_s=time.perf_counter() - t0)
+    log(f"phase 19: {found['phase_s']:.1f} s")
+    return found
+
+
 def run() -> dict:
     import torch
 
@@ -2392,6 +2564,7 @@ def run() -> dict:
         from gpuschedule_tpu_torch.parallel import ShardedTrainer
         from gpuschedule_tpu_torch.parallel.train import make_optimizer
         from gpuschedule_tpu_torch.profiler import device_ms_per_launch, time_callable, time_steps
+        from gpuschedule_tpu_torch.tools.roofline import attention_cost, bound
 
         # the module, not the op of the same name that ops/__init__ exports
         fa = importlib.import_module("gpuschedule_tpu_torch.ops.flash_attention")
@@ -2634,7 +2807,7 @@ def run() -> dict:
     before = dict(fa.LAUNCHES)
     flash_prof = profile_steps(torch, trainer, state, tokens,
                                kernels=[KERNELS[name][0] for name in KERNELS])
-    window = {name: (fa.LAUNCHES[name] - before[name]) / flash_prof.get("steps", 1)
+    window = {name: (fa.LAUNCHES[name] - before[name]) / flash_prof["steps_run"]
               for name in KERNELS}
     log(f"flash step profile: {json.dumps(flash_prof)}")
     check("device_ms_per_step" in flash_prof, f"flash step profile: {flash_prof}")
@@ -2741,6 +2914,12 @@ def run() -> dict:
     print(json.dumps({"nccl": nccl_phase(torch, smi)}))
     print(json.dumps({"entry": entry_phase(torch)}))
 
+    # --------------------------------------------------------------- 19 --
+    tools = tools_phase(torch, smi)
+    print(json.dumps({"tools": tools}))
+    for name in KERNELS:
+        errs[name] = max(errs[name], tools["kernels"][name]["max_abs_err"])
+
     # --------------------------------------------------------------- 14 --
     train = {
         "card": smi, "build_s": build_s,
@@ -2773,7 +2952,7 @@ def run() -> dict:
          "launches_pp_per_step_a_rank":
              pp["cells"]["transformer-long"]["launches_per_step"][0][name],
          "longctx": longctx["kernels"][name], "tp_shape": tp["kernels"][name],
-         "pp_shape": pp["kernels"][name],
+         "pp_shape": pp["kernels"][name], "d128_shape": tools["kernels"][name],
          **({} if name == "flash_fwd" else {
              "library": "SDPA's flash backward: dq, dk and dv in one call, K2 and K3 together"})}
         for name, (cname, f32_name, replaces) in KERNELS.items()

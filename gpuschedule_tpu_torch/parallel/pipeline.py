@@ -56,15 +56,33 @@ recv take CPU tensors only, and it takes an all-reduce of CUDA tensors
 CPU, under gloo across ranks time-sliced on one card, and under NCCL.
 For pp = 2 the buffer is one activation.
 
-On the card the pipeline's step runs eagerly (no CUDA graph), over gloo
-and NCCL alike.
+*On the card* each rank's stage compute is captured in CUDA graphs, as the
+JAX pipelined step is one ``jit`` program, while the tick loop and the
+stage-line exchanges stay eager between the graphs, so the same capture
+holds over gloo and over NCCL (:class:`_CapturedStage`).  A step's first
+call for a state and a batch shape runs eagerly on a side stream (it builds
+the kernels), the second captures a graph for each microbatch's stage
+forward and one for its backward (under ``remat``: the recompute and the
+backward in one graph), replaying each as it is captured, and every later
+call replays them.  The graphs share one memory pool and are captured in
+the schedule's order, the forwards in order and the backwards in reverse;
+replays keep that order, so a backward's graph may reuse what an earlier
+backward freed, and gpipe's M microbatches keep M graphs' activations
+alive at once, as the eager step does.  ``torch.cuda.make_graphed_callables``
+does not serve here: given the stage module M times it rebinds the module's
+``forward`` M times, so only the last graph is called; given a function
+with the parameters among its arguments it runs three untimed forward and
+backward passes of every microbatch as its warm-up, records no launches
+apart for each graph, and has no form for remat's recompute-and-backward
+graph.  On the CPU the step runs eagerly.
 """
 
 from __future__ import annotations
 
 import re
+from dataclasses import dataclass
 from functools import partial
-from typing import Dict, List, Mapping, Optional, Sequence
+from typing import Callable, Dict, List, Mapping, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -73,6 +91,7 @@ from torch import nn
 from gpuschedule_tpu_torch.data.loader import BatchSharding, synthetic_lm_batches
 from gpuschedule_tpu_torch.models.config import CnnConfig
 from gpuschedule_tpu_torch.models.transformer import BF16, build_model, model_config
+from gpuschedule_tpu_torch.ops import launches
 from gpuschedule_tpu_torch.parallel.mesh import Mesh
 from gpuschedule_tpu_torch.parallel.tp import Tp
 from gpuschedule_tpu_torch.parallel.train import (
@@ -80,6 +99,7 @@ from gpuschedule_tpu_torch.parallel.train import (
     TrainState,
     _all_reduce_grads,
     make_optimizer,
+    on_side_stream,
     traced_step,
 )
 
@@ -127,6 +147,147 @@ class _StageLine:
         dist.all_reduce(buf, group=self.group)
         slot = self.stage - 1 if forward else self.stage
         return buf[slot] if 0 <= slot < self.size - 1 else None
+
+
+class _EagerStage:
+    """A rank's stage compute as plain PyTorch calls, one launch at a time:
+    on the CPU, in the card's warm-up step and in
+    :meth:`PipelinedLM.loss_and_grads`.  ``run(x) -> (y, aux)`` is the
+    stage; ``gpipe`` keeps each microbatch's graph from its forward to its
+    backward, else (remat) the backward recomputes it from the input."""
+
+    def __init__(self, run: Callable, gpipe: bool, aux_weight: float):
+        self.run, self.gpipe, self.aux_weight = run, gpipe, aux_weight
+        self.kept: Dict[int, tuple] = {}
+
+    def begin(self) -> None:
+        """Before a step's first tick."""
+
+    def forward(self, i: int, x: torch.Tensor):
+        """(y, aux) of the stage on microbatch ``i``'s input ``x``."""
+        x = x.detach().requires_grad_(True)
+        with torch.set_grad_enabled(self.gpipe):
+            y, aux = self.run(x)
+        self.kept[i] = (x, y, aux)
+        return y, aux
+
+    def backward(self, i: int, g: torch.Tensor) -> torch.Tensor:
+        """The gradient of microbatch ``i``'s stage input from ``g``, its
+        output's, and the aux's weight; the parameters' gradients add to
+        their ``.grad``."""
+        x, y, aux = self.kept.pop(i)
+        if not self.gpipe:
+            y, aux = self.run(x)
+        heads, grads = [y], [g]
+        if aux is not None:
+            heads.append(aux)
+            grads.append(torch.full_like(aux, self.aux_weight))
+        torch.autograd.backward(heads, grads)
+        return x.grad
+
+    def end(self) -> None:
+        """After a step's last tick."""
+
+
+@dataclass
+class _Graph:
+    """A captured graph, the launches of our kernels its capture recorded,
+    and its static outputs."""
+
+    graph: "torch.cuda.CUDAGraph"
+    recorded: launches.Recorded
+    out: object
+
+    def replay(self):
+        self.graph.replay()
+        launches.replayed(self.recorded)
+        return self.out
+
+
+class _CapturedStage:
+    """A rank's stage compute on the card as CUDA graphs (module docstring):
+    for each microbatch i a graph of the stage forward on a static input,
+    and one of the backward from a static output gradient: the input's
+    gradient, and the parameters' added into one static gradient each
+    (``grads``, zeroed in :meth:`begin`, handed to the parameters in
+    :meth:`end`).  A graph is captured at its first call and replayed at
+    once; a capture that fails raises.  ``params`` are the stage's block
+    parameters, ``m`` the microbatches."""
+
+    def __init__(self, run: Callable, gpipe: bool, aux_weight: float,
+                 params: Sequence[torch.nn.Parameter], m: int):
+        self.run, self.gpipe, self.aux_weight = run, gpipe, aux_weight
+        self.params = list(params)
+        self.grads = [torch.zeros_like(p) for p in self.params]
+        self.used = [False] * len(self.params)  # a parameter the stage's gradient reaches
+        self.pool = torch.cuda.graph_pool_handle()
+        self.inputs: List[Optional[torch.Tensor]] = [None] * m
+        self.out_grads: List[Optional[torch.Tensor]] = [None] * m
+        self.fwd: List[Optional[_Graph]] = [None] * m
+        self.bwd: List[Optional[_Graph]] = [None] * m
+
+    def _capture(self, body: Callable) -> _Graph:
+        """Capture ``body()`` into a graph of the pool.  Nothing runs while
+        a graph is captured, so the launches the wrappers count meanwhile
+        become the graph's own, counted on its replays."""
+        graph = torch.cuda.CUDAGraph()
+        with launches.recording() as recorded, torch.cuda.graph(graph, pool=self.pool):
+            out = body()
+        return _Graph(graph, recorded, out)
+
+    def begin(self) -> None:
+        torch._foreach_zero_(self.grads)
+
+    def forward(self, i: int, x: torch.Tensor):
+        first = self.fwd[i] is None
+        if first:
+            self.inputs[i] = torch.empty_like(x).requires_grad_(True)
+        # before the capture: the backward's capture checks that nothing
+        # wrote to a tensor the forward saved since it was captured
+        with torch.no_grad():
+            self.inputs[i].copy_(x)
+        if first:
+            def body():
+                with torch.set_grad_enabled(self.gpipe):
+                    return self.run(self.inputs[i])
+
+            self.fwd[i] = self._capture(body)
+        return self.fwd[i].replay()
+
+    def backward(self, i: int, g: torch.Tensor) -> torch.Tensor:
+        first = self.bwd[i] is None
+        if first:
+            self.out_grads[i] = torch.empty_like(g)
+        self.out_grads[i].copy_(g)
+        if first:
+            self.bwd[i] = self._capture_backward(i)
+        return self.bwd[i].replay()
+
+    def _capture_backward(self, i: int) -> _Graph:
+        x, (y, aux) = self.inputs[i], self.fwd[i].out
+        seed = None if aux is None else torch.full_like(aux, self.aux_weight)
+
+        def body():
+            if self.gpipe:
+                out, a = y, aux
+            else:  # remat: the recompute in the backward's graph
+                with torch.enable_grad():
+                    out, a = self.run(x)
+            ys, seeds = [out], [self.out_grads[i]]
+            if a is not None:
+                ys.append(a)
+                seeds.append(seed)
+            grads = torch.autograd.grad(ys, [x] + self.params, seeds, allow_unused=True)
+            pairs = [(acc, gr) for acc, gr in zip(self.grads, grads[1:]) if gr is not None]
+            torch._foreach_add_([acc for acc, _ in pairs], [gr for _, gr in pairs])
+            self.used = [u or gr is not None for u, gr in zip(self.used, grads[1:])]
+            return grads[0]
+
+        return self._capture(body)
+
+    def end(self) -> None:
+        for p, acc, used in zip(self.params, self.grads, self.used):
+            p.grad = acc if used else None
 
 
 class PipelinedLM:
@@ -209,6 +370,13 @@ class PipelinedLM:
         self.line = _StageLine(mesh)
         self.batch_sharding = BatchSharding(self.device, mesh.coordinate("dp") * self.rows,
                                             self.rows, 0, seq_len, blocks=num_microbatches)
+        self.aux_weight = moe_aux_weight / (num_microbatches * dp)  # a microbatch's aux seed
+        # the card captures the stage compute (module docstring); the state
+        # its graphs belong to, and its stage graphs by batch key (None:
+        # warmed up, not captured yet)
+        self.capturable = self.device.type == "cuda"
+        self._graph_state: Optional[TrainState] = None
+        self._graphs: Dict[tuple, Optional[_CapturedStage]] = {}
 
     # ------------------------------------------------------------------ #
 
@@ -241,12 +409,43 @@ class PipelinedLM:
 
     def step(self, state: TrainState, batch: torch.Tensor):
         """One pipelined optimizer step on this rank's rows; returns
-        ``(state, loss)``, the global loss on every rank."""
+        ``(state, loss)``, the global loss on every rank.  On the card the
+        stage compute is captured (module docstring): the first call for a
+        state and a batch shape runs eagerly on a side stream, the second
+        captures the stage graphs, later calls replay them; a new state or
+        batch shape captures anew.  Time a step only after 2 calls."""
         return traced_step(self._step, state, batch, self.batch_size * self.seq_len)
 
     def _step(self, state: TrainState, tokens: torch.Tensor):
+        """:meth:`step` untraced."""
+        if not self.capturable:
+            return self._eager_step(state, tokens)
+        if state is not self._graph_state:
+            self._graphs.clear()
+            self._graph_state = state
+        key = (tuple(tokens.shape), tokens.dtype)
+        if key not in self._graphs:
+            self._graphs[key] = None
+            return on_side_stream(self.device, self._eager_step, state, tokens)
+        if self._graphs[key] is None:
+            blocks = [p for name, p in state.model.named_parameters()
+                      if name.startswith("blocks.")]
+            self._graphs[key] = _CapturedStage(partial(self._run_stage, state.model),
+                                               self.schedule == "gpipe", self.aux_weight,
+                                               blocks, self.num_microbatches)
+        return self._update(state, tokens, self._graphs[key])
+
+    def _eager_step(self, state: TrainState, tokens: torch.Tensor):
+        """The step with the stage compute run eagerly, one launch at a time."""
+        return self._update(state, tokens, self._eager_stage(state.model))
+
+    def _eager_stage(self, model: nn.Module) -> _EagerStage:
+        return _EagerStage(partial(self._run_stage, model), self.schedule == "gpipe",
+                           self.aux_weight)
+
+    def _update(self, state: TrainState, tokens: torch.Tensor, stage):
         state.optimizer.zero_grad()
-        loss = self.loss_and_grads(state, tokens)
+        loss = self._loss_and_grads(state, tokens, stage)
         state.optimizer.step()
         return state, loss
 
@@ -255,9 +454,12 @@ class PipelinedLM:
         each parameter's ``.grad``: the blocks' summed over the stage's dp
         ranks, the embedding's and the head's over every rank, so each
         rank holds the sequential model's gradients of what it holds.  The
-        global loss, on every rank."""
+        global loss, on every rank.  The stage compute runs eagerly."""
+        return self._loss_and_grads(state, tokens, self._eager_stage(state.model))
+
+    def _loss_and_grads(self, state: TrainState, tokens: torch.Tensor, stage) -> torch.Tensor:
         model = state.model
-        loss = self._forward_backward(model, tokens)
+        loss = self._forward_backward(model, tokens, stage)
         if self.dp > 1:
             _all_reduce_grads(model.parameters(), self.mesh.data_group)
         _all_reduce_grads([p for name, p in model.named_parameters()
@@ -274,35 +476,30 @@ class PipelinedLM:
         y, aux = model.run_blocks(x)
         return y, (sum(aux) if aux else None)
 
-    def _forward_backward(self, model, tokens: torch.Tensor) -> torch.Tensor:
-        """The schedule of the module docstring on this rank's rows; the
-        parameters' gradients accumulate, and this rank's share of the
-        loss is returned (detached)."""
+    def _forward_backward(self, model, tokens: torch.Tensor, stage) -> torch.Tensor:
+        """The schedule of the module docstring on this rank's rows, the
+        stage compute by ``stage`` (:class:`_EagerStage` or
+        :class:`_CapturedStage`); the parameters' gradients accumulate, and
+        this rank's share of the loss is returned (detached)."""
         m, s, last = self.num_microbatches, self.stage, self.stage == self.pp - 1
         ticks = m + self.pp - 1
         rows, n = self.rows, tokens.shape[1]
         like = torch.zeros((rows, n, self.cfg.d_model), dtype=BF16, device=tokens.device)
-        aux_weight = self.moe_aux_weight / (m * self.dp)
-        gpipe = self.schedule == "gpipe"
+        stage.begin()
         if s == 0:
             embedded = model.embed_tokens(tokens)
-            inputs_of = embedded.detach().requires_grad_(True)
-        inputs: List[Optional[torch.Tensor]] = [None] * m
         outputs: List[Optional[torch.Tensor]] = [None] * m
         auxes: List[Optional[torch.Tensor]] = [None] * m
         received = None
         for t in range(ticks):
             i, out = t - s, None
             if 0 <= i < m:
-                x = (inputs_of[i * rows:(i + 1) * rows] if s == 0
-                     else received.detach().requires_grad_(True))
-                with torch.set_grad_enabled(gpipe):
-                    y, aux = self._run_stage(model, x)
-                inputs[i], outputs[i], auxes[i] = x, y, aux
-                out = None if last else y.detach()
+                x = embedded[i * rows:(i + 1) * rows] if s == 0 else received
+                outputs[i], auxes[i] = stage.forward(i, x)
+                out = None if last else outputs[i].detach()
             if t < ticks - 1:
                 received = self.line.send(out, like, forward=True)
-        share = sum(a.detach().float() for a in auxes if a is not None) * aux_weight
+        share = sum(a.detach().float() for a in auxes if a is not None) * self.aux_weight
         if not isinstance(share, torch.Tensor):
             share = torch.zeros((), device=tokens.device)
         if last:
@@ -314,25 +511,21 @@ class PipelinedLM:
             out_grads = [y.grad for y in ys]
             share = share + ce.detach()
         received = None
+        input_grads: List[Optional[torch.Tensor]] = [None] * m  # stage 0's
         for r in reversed(range(ticks)):
             i, back = r - s, None
             if 0 <= i < m:
-                if gpipe:
-                    y, aux = outputs[i], auxes[i]
+                dx = stage.backward(i, out_grads[i] if last else received)
+                outputs[i] = auxes[i] = None
+                if s == 0:
+                    input_grads[i] = dx
                 else:
-                    y, aux = self._run_stage(model, inputs[i])
-                g = out_grads[i] if last else received
-                heads, grads = [y], [g]
-                if aux is not None:
-                    heads.append(aux)
-                    grads.append(torch.full_like(aux, aux_weight))
-                torch.autograd.backward(heads, grads)
-                outputs[i] = auxes[i] = None  # free the microbatch's graph
-                back = inputs[i].grad if s > 0 else None
+                    back = dx
             if r > 0:
                 received = self.line.send(back, like, forward=False)
+        stage.end()
         if s == 0:
-            embedded.backward(inputs_of.grad)
+            embedded.backward(torch.cat(input_grads))
         return share
 
     # ------------------------------------------------------------------ #

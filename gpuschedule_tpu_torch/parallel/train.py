@@ -269,6 +269,19 @@ def _clone(batch: Batch) -> Batch:
     return tuple(t.clone() for t in batch) if isinstance(batch, (tuple, list)) else batch.clone()
 
 
+def on_side_stream(device: torch.device, fn, *args):
+    """``fn(*args)`` on a new stream of ``device`` that starts after the
+    current stream's work and that the current stream then waits for: the
+    warm-up PyTorch asks for before code is captured in a CUDA graph."""
+    main = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        out = fn(*args)
+    main.wait_stream(side)
+    return out
+
+
 @dataclass
 class _Captured:
     """One captured step: the graph, its static batch buffers and loss, and
@@ -568,13 +581,7 @@ class ShardedTrainer:
 
     def _warm_up(self, state: TrainState, batch: Batch) -> Tuple[TrainState, torch.Tensor]:
         """One eager step on a side stream, as PyTorch asks before a capture."""
-        main = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            state, loss = self._eager_step(state, batch)
-        main.wait_stream(side)
-        return state, loss
+        return on_side_stream(self.device, self._eager_step, state, batch)
 
     def _capture(self, state: TrainState, batch: Batch) -> _Captured:
         """Capture :meth:`_update` on ``batch``'s shapes.  Nothing runs while

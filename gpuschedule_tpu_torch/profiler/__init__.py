@@ -4,6 +4,7 @@ from gpuschedule_tpu_torch.profiler.goodput import CurveCache, GoodputCurve, fit
 from gpuschedule_tpu_torch.profiler.harness import (
     capture_trace,
     device_ms_per_launch,
+    device_window,
     host_us_per_call,
     measure_step_time,
     profile_model,
@@ -13,6 +14,6 @@ from gpuschedule_tpu_torch.profiler.harness import (
 
 __all__ = [
     "CurveCache", "GoodputCurve", "fit_step_time_curve", "capture_trace",
-    "device_ms_per_launch", "host_us_per_call",
+    "device_ms_per_launch", "device_window", "host_us_per_call",
     "measure_step_time", "profile_model", "time_callable", "time_steps",
 ]

@@ -2,8 +2,10 @@
 
 Counterpart of ``gpuschedule_tpu/profiler/harness.py``: ``time_steps``,
 ``time_callable``, ``measure_step_time``, ``capture_trace`` and
-``profile_model``; and, for single kernels, ``device_ms_per_launch`` (a
-``torch.profiler`` window) and ``host_us_per_call`` (the launch path).
+``profile_model``; ``device_window``, the one ``torch.profiler`` window
+of the port's tools and checks (a marker kernel in each, a lost window
+taken again); and, for single kernels, ``device_ms_per_launch`` (on such a
+window) and ``host_us_per_call`` (the launch path).
 Under a launcher the step is measured on (dp, sp, tp) meshes of the first
 k ranks, or (pp, dp) meshes with the pipeline's trainer, as the JAX
 harness measures meshes of the first k devices (``_mesh_trainer``): every
@@ -25,8 +27,9 @@ import statistics
 import sys
 import time
 import warnings
+from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -105,39 +108,112 @@ def time_callable(fn, *args, iters: int = 8, warmup: int = 2, device=None) -> fl
     return (time.perf_counter() - t0) / iters
 
 
-WINDOWS = 4  # profiler windows device_ms_per_launch takes before it gives up on a kernel
+WINDOWS = 4  # profiler windows device_window takes before it gives up
+MARKER = "spin"  # in the name of the kernel torch.cuda._sleep launches: the pads and the marker
+MARKER_CYCLES = 40_000  # the marker's length, ~20 µs: told apart from the pads by it
+MARKER_US = 10.0
+# short spins before the marker: a process that has shared the card with
+# another drops the first records of its windows (ROADMAP Queue 3)
+PAD = 16
+# the windows this process has taken and lost: the fault that loses them is
+# the process's (ROADMAP Queue 3), so the tally is too
+TALLY = {"taken": 0, "lost": 0}
+
+
+class LostWindow(RuntimeError):
+    """Every profiler window :func:`device_window` took lost its records."""
+
+
+class Record(NamedTuple):
+    """One record of a profiler window: a name and its µs."""
+
+    name: str
+    us: float
+
+
+@dataclass
+class Window:
+    """What :func:`device_window` returns: the window's device records (the
+    marker left out), its host records (with ``host=True``) and how many
+    windows before it were lost."""
+
+    device: List[Record]
+    host: List[Record]
+    lost: int
+    wall_ms: float  # the host's time from the window's first launch to its last synchronize
+
+
+def device_window(fn, calls: int = 1, *, want: Optional[str] = None, host: bool = False,
+                  what: str = "device_window", windows: int = WINDOWS,
+                  check: bool = True, warm: bool = True) -> Window:
+    """The records of one ``torch.profiler`` window of ``calls`` calls of
+    ``fn`` on the card, after one call outside it (``warm=False``: none,
+    for a caller that counts every call): the one window of the
+    port's tools and checks.  Each window launches PAD short spins, then a
+    marker kernel (``torch.cuda._sleep`` of MARKER_CYCLES), then the calls.
+    A process that has shared the card with another process drops the
+    first device records of its windows (ROADMAP Queue 3,
+    ``tools/window_probe.py``): the pads take a short loss, and a window
+    whose device records hold no marker lost more.  A window without the marker, or with ``want`` given
+    and no device record whose name holds it, is taken again, up to
+    ``windows`` windows; each lost one is printed to stderr on a line of
+    its own (``what``, the window's number and the names it did see), and
+    a run of ``windows`` lost windows raises :class:`LostWindow`.  Ranks that
+    step together pass ``windows=1``: a window taken again on one rank
+    alone would call ``fn`` more often there than on the others.
+    ``check=False`` returns the first window as it is (for its host
+    records).  ``host`` records the host's activity too (the runtime calls
+    that launch the kernels, ``Window.host``).  :data:`TALLY` counts the
+    process's windows.  The pads and the marker are left out of the
+    records returned."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host else [])
+    if warm:
+        fn()
+    torch.cuda.synchronize()
+    for window in range(windows):
+        with profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            for _ in range(PAD):
+                torch.cuda._sleep(100)
+            torch.cuda._sleep(MARKER_CYCLES)
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        TALLY["taken"] += 1
+        device, cpu = [], []
+        for evt in prof.events():
+            # GPU-side user annotations (the optimizer's range) overlap the
+            # kernels they contain: device activity only
+            if getattr(evt, "is_user_annotation", False):
+                continue
+            rec = Record(evt.name, evt.time_range.elapsed_us())
+            (device if evt.device_type == DeviceType.CUDA else cpu).append(rec)
+        marked = any(MARKER in r.name and r.us >= MARKER_US for r in device)
+        device = [r for r in device if MARKER not in r.name]
+        if not check or (marked and (want is None or any(want in r.name for r in device))):
+            return Window(device, cpu, window, wall_ms)
+        TALLY["lost"] += 1
+        print(f"{what}: window {window + 1} of {windows} lost "
+              f"{'its marker' if not marked else repr(want)}: {calls} calls, device records "
+              f"{sorted({r.name[:90] for r in device})}", file=sys.stderr, flush=True)
+    raise LostWindow(f"{what}: {windows} profiler windows in a row lost their device records")
 
 
 def device_ms_per_launch(fn, kernel: str, launches: int = 5):
     """(ms per launch, kernel names seen) of the device kernels whose name
-    holds ``kernel`` over ``launches`` calls of ``fn`` in a
-    ``torch.profiler`` window; ms is None if the profiler saw no such kernel.
-    ``fn`` launches the kernel, so a window whose records hold none of its
-    launches lost them (seen on the card: a window of ``probe_copy``
-    launches with no record of the kernel): it is taken again, up to
-    WINDOWS windows, and each lost window is printed to stderr on a line
-    of its own with the kernel it wanted and the names it did see."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    for window in range(WINDOWS):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(launches):
-                fn()
-            torch.cuda.synchronize()
-        names, total = set(), 0.0
-        for evt in prof.events():
-            if evt.device_type == DeviceType.CUDA and not getattr(evt, "is_user_annotation", False):
-                names.add(evt.name)
-                if kernel in evt.name:
-                    total += evt.time_range.elapsed_us() / 1e3
-        if any(kernel in n for n in names):
-            return total / launches, sorted(names)
-        print(f"device_ms_per_launch: window {window + 1} of {WINDOWS} lost {kernel!r}: "
-              f"{launches} calls, device records {sorted(names)}", file=sys.stderr, flush=True)
-    return None, sorted(names)
+    holds ``kernel`` over ``launches`` calls of ``fn`` in a profiler
+    window (:func:`device_window`, which takes a window again while the
+    kernel is missing from it); ms is None if WINDOWS windows lost it."""
+    try:
+        win = device_window(fn, launches, want=kernel, what=f"device_ms_per_launch {kernel!r}")
+    except LostWindow:
+        return None, []
+    total = sum(r.us for r in win.device if kernel in r.name) / 1e3
+    return total / launches, sorted({r.name for r in win.device})
 
 
 def host_us_per_call(fn, calls: int = 1000) -> float:

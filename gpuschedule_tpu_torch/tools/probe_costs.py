@@ -16,16 +16,15 @@ at ``--n`` tiles of (8, 128) bf16, one JSON line each:
 then one line that splits K5a's parallel call into its host parts (checks,
 allocation, the ctypes call that launches the kernel).
 
-The script imports nothing of the port but that module, ``ops._build`` and
-the profiler's timing helpers, so it prices another checkout of the port
-that has them the same way: ``PYTHONPATH=<checkout> python <this file>``.
+The script imports nothing of the port but that module, ``ops._build``,
+the profiler's timing helpers and ``cluster.cards`` (the ``nvidia-smi``
+line), so it prices another checkout of the port that has them the same way: ``PYTHONPATH=<checkout> python <this file>``.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 from typing import Optional, Sequence
 
@@ -85,9 +84,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if not torch.cuda.is_available():
         print("probe_costs: no CUDA device; the costs are the card's", file=sys.stderr)
         return 1
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60).stdout.strip()
-    print(json.dumps({"device": torch.cuda.get_device_name(0), "card": smi}), flush=True)
+    from gpuschedule_tpu_torch.cluster.cards import nvidia_smi_line
+
+    print(json.dumps({"device": torch.cuda.get_device_name(0), "card": nvidia_smi_line()}),
+          flush=True)
     for (name, parallel), rec in wrapper_costs(args.n).items():
         print(json.dumps({"kernel": name, "parallel": parallel, "n": args.n, **rec}), flush=True)
     print(json.dumps({"host_us": host_breakdown(args.n), "n": args.n}), flush=True)
