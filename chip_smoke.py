@@ -222,6 +222,18 @@ Phases, each fatal on failure (exit code 1, no result line):
    TRACE_RTOL of kernel_bench's) and ``roofline.fit_overhead`` of the
    measured flash fwd+bwd; the profiler windows each process took and lost
    and the phase's seconds printed.  A ``{"tools": ...}`` line;
+20. the simulator (``sim_phase``): ``python -m gpuschedule_tpu_torch run``
+   replays ``data/philly_10k.csv`` on the default v5p pod (8x8x4 = 256
+   chips) under FIFO and DLAS, one process each, every job finishing, each
+   replay's wall seconds beside the host CPU, the card's name and power
+   limit; then ``run --policy optimus --online`` over 1,000 synthetic jobs
+   on a v5e 16x16 pod in this process, each of the trace's four models
+   profiled once on the card (``profile_model``, counted), one curve each,
+   the profiling charge applied once a model, every job finished, each
+   curve's k = 1 step within PROFILE_RTOL of a direct
+   ``measure_step_time`` at the same batch and length (the profiled steps
+   are dense: no flash launches); then the same trace offline from those
+   curves twice, equal summaries.  A ``{"sim": ...}`` line;
 14. a ``{"train": ...}`` line, a ``{"kernels": [...]}`` line (the five
    kernels and the three f32 forms; K1-K3 with their launches on the MoE +
    flash path, phase 13's path and phases 15's and 16's flash cells too,
@@ -370,6 +382,13 @@ TRACE_RTOL = 0.15  # trace_flash's device ms vs kernel_bench's for the same case
 # the window probe's series in the script's process and in phase 19's own
 PROBE_WINDOWS = 15
 PROBE_FORMS = ("plain", "padded", "settled 0.1 s and padded")
+# phase 20: the simulator's run path
+SIM_PHILLY = "data/philly_10k.csv"   # 10,000 jobs, replayed on the default v5p pod (8x8x4)
+SIM_REPLAY_POLICIES = ("fifo", "dlas")
+SIM_ONLINE = ("--policy", "optimus", "--cluster", "tpu-v5e", "--dims", "16x16",
+              "--synthetic", "1000", "--seed", "42")
+SIM_PROFILE = (2, 32)  # OptimusPolicy's profile_batch and profile_seq: what --online measures
+SIM_TIMEOUT_S = 300
 ROOT = Path(__file__).resolve().parent
 
 
@@ -461,7 +480,8 @@ def profile_steps(torch, trainer, state, tokens, steps: int = 2, kernels=(), fee
     """Device time by kernel over ``steps`` train steps in a profiler window
     (``device_window``: pads and a marker first, a lost window taken again
     up to ``windows`` windows, by default the harness's WINDOWS; ranks that
-    step together, and a feed of a fixed length, pass 1), each step on
+    step together pass 1, and a feed holds a window's steps for each window
+    that may be taken again), each step on
     ``tokens`` or, given ``feed``, on the feed's next batch: per-step ms of
     the top kernels, their sum, the busy share of the profiled window's
     wall time (the profiler's own overhead lands in the idle share; the
@@ -1375,7 +1395,11 @@ def resume_in_process(torch, fa, data_path, phase5_s, tmp) -> dict:
     # fed block follows a block of replays on one batch already on the card (the
     # feed's first), and is held to it: phase 5 ran minutes earlier, the card's
     # clock moves by a few percent between phases and by 2-4% between blocks
-    fed = _fed(ds, trainer, 6, 1 + STEP_PAIRS * 5 + 3 + 2 + 1, epoch=0)
+    # the window's 2 steps, and 2 more for each window it may take again
+    from gpuschedule_tpu_torch.profiler.harness import WINDOWS
+
+    spare = 2 * (WINDOWS - 1)
+    fed = _fed(ds, trainer, 6, 1 + STEP_PAIRS * 5 + 3 + 2 + spare + 1, epoch=0)
     resident = next(fed)
     blocks, resident_blocks = [], []
     for _ in range(STEP_PAIRS):
@@ -1397,13 +1421,15 @@ def resume_in_process(torch, fa, data_path, phase5_s, tmp) -> dict:
     finally:
         torch.cuda.set_sync_debug_mode("default")
     before = dict(fa.LAUNCHES)
-    prof = profile_steps(torch, trainer, state, None, feed=fed, windows=1,
+    prof = profile_steps(torch, trainer, state, None, feed=fed,
                          kernels=[KERNELS[name][0] for name in KERNELS])
     check("device_ms_per_step" in prof, f"prefetch-fed step profile: {prof}")
     window = {name: (fa.LAUNCHES[name] - before[name]) / prof["steps_run"] for name in KERNELS}
     seen = {name: prof["launches_per_step"][KERNELS[name][0]] for name in KERNELS}
     busy = prof["device_ms_per_step"] / (step_s * 1e3)
     state, loss = trainer.step(state, next(fed))
+    for _ in range(spare - (prof["steps_run"] - 2)):  # what the windows taken left over
+        next(fed)
     check(next(fed, None) is None, "the feed held more batches than the steps took")
     step_rel = statistics.median(pair_rel)
     log(f"prefetch-fed replays of the restored trainer: {step_s * 1e3:.3f} ms/step "
@@ -2407,6 +2433,189 @@ def nccl_phase(torch, smi) -> dict:
     return found
 
 
+def host_cpu() -> str:
+    """The host CPU's model name (the replay is host time): /proc/cpuinfo's,
+    else lscpu's, else the machine type."""
+    import platform
+
+    name = None
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                if key.strip().lower() in ("model name", "cpu model") and value.strip():
+                    name = value.strip()
+                    break
+    except OSError:
+        pass
+    if name is None and shutil.which("lscpu"):
+        res = subprocess.run(["lscpu"], capture_output=True, text=True, timeout=30)
+        for line in res.stdout.splitlines():
+            key, _, value = line.partition(":")
+            if key.strip() in ("Model name", "Vendor ID") and value.strip():
+                name = value.strip()
+                if key.strip() == "Model name":
+                    break
+    return f"{name or 'model not reported'}, {platform.machine()}, {os.cpu_count()} CPUs"
+
+
+def sim_replays(argvs: dict) -> dict:
+    """``python -m gpuschedule_tpu_torch run`` once for each of ``argvs``
+    (label -> arguments), all started together, one process each: each
+    one's summary line and wall seconds (interpreter start and imports
+    included)."""
+    procs = {}
+    for label, argv in argvs.items():
+        cmd = [sys.executable, "-m", "gpuschedule_tpu_torch", "run", *argv]
+        procs[label] = (time.perf_counter(), subprocess.Popen(
+            cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    found = {}
+    try:
+        for label, (t0, proc) in procs.items():
+            out, err = proc.communicate(timeout=SIM_TIMEOUT_S)
+            wall_s = time.perf_counter() - t0
+            lines = out.strip().splitlines()
+            for text in err.splitlines():
+                print(f"run ({label}): {text}", file=sys.stderr)
+            check(proc.returncode == 0 and len(lines) == 1,
+                  f"run ({label}) exited {proc.returncode}: {err.strip()[-2000:]}")
+            found[label] = {"summary": json.loads(lines[0]), "wall_s": wall_s}
+    finally:
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    return found
+
+
+def sim_phase(torch, fa, smi, device=None) -> dict:
+    """Phase 20: the simulator's ``run`` path (``gpuschedule_tpu_torch.sim``).
+    (i) ``data/philly_10k.csv`` on the default v5p pod under FIFO and DLAS,
+    one process each: every job finishes, each replay's wall seconds beside
+    the host CPU and the card; (ii) ``run --online`` under Optimus over 1,000
+    synthetic jobs on a v5e 16x16 pod, in this process: each model of the
+    trace profiled once through ``profile_model`` on the card (the calls
+    counted by a wrapper of the harness's function), one curve each in the
+    cache, the profiling charge applied once a model, every job finished,
+    each curve's k = 1 step (the measured point and the fitted curve)
+    within PROFILE_RTOL of a direct ``measure_step_time`` of that model at
+    the same batch and length; the profiled steps are dense (as the JAX
+    Optimus profiles them), so no flash kernel launches; (iii) the same
+    trace offline from the written curves, twice, one process each: equal
+    summaries.  ``device="cpu"`` rehearses it off the card."""
+    import contextlib
+    import io
+    from collections import Counter
+
+    from gpuschedule_tpu_torch import cli
+    from gpuschedule_tpu_torch.profiler import CurveCache, harness, measure_step_time
+    from gpuschedule_tpu_torch.sim.trace import generate_poisson_trace
+
+    t_phase = time.perf_counter()
+    cpu = host_cpu()
+    # what a replay's wall seconds spend before the replay: a process that
+    # only starts and imports the run path
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-c", "import gpuschedule_tpu_torch.cli, "
+                    "gpuschedule_tpu_torch.sim, gpuschedule_tpu_torch.policies"],
+                   cwd=ROOT, check=True, timeout=SIM_TIMEOUT_S)
+    import_s = time.perf_counter() - t0
+    log(f"phase 20: a process that starts and imports the run path: {import_s:.3f} s")
+    found = {"card": smi, "host_cpu": cpu, "import_s": import_s}
+
+    # (i) the 10,000-job Philly replay on v5p-256
+    philly = sim_replays({pol: ["--policy", pol, "--cluster", "tpu-v5p", "--philly", SIM_PHILLY]
+                          for pol in SIM_REPLAY_POLICIES})
+    for pol, rep in philly.items():
+        summ = rep["summary"]
+        log(f"phase 20 replay: {SIM_PHILLY} on tpu-v5p 8x8x4 under {pol}: "
+            f"{rep['wall_s']:.3f} s wall ({len(philly)} replays at once, one process each) on "
+            f"host {cpu}; card {smi}; {int(summ['num_finished'])} of "
+            f"{int(summ['arrivals'])} jobs finished, avg JCT {summ['avg_jct']:.1f} s")
+        check(summ["arrivals"] == 10000 and summ["num_finished"] == summ["arrivals"],
+              f"{pol}: not every job of {SIM_PHILLY} finished: {summ}")
+    found["philly"] = philly
+
+    # (ii) Optimus online, the profiling on the card
+    models = sorted({j.model_name for j in generate_poisson_trace(1000, seed=42)})
+    calls: Counter = Counter()
+    profile_s = {}
+    real = harness.profile_model
+
+    def counted(model, **kw):
+        t0 = time.perf_counter()
+        curve = real(model, **kw)
+        calls[model] += 1
+        profile_s[model] = time.perf_counter() - t0
+        return curve
+
+    batch, seq = SIM_PROFILE
+    launches0 = dict(fa.LAUNCHES)
+    with tempfile.TemporaryDirectory() as tmp:
+        curves = os.path.join(tmp, "curves.json")
+        argv = [*SIM_ONLINE, "--curves", curves]
+        on = [] if device is None else ["--device", str(device)]
+        harness.profile_model = counted
+        out = io.StringIO()
+        try:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = cli.main(["run", *argv, "--online", *on])
+            online_s = time.perf_counter() - t0
+        finally:
+            harness.profile_model = real
+        check(rc == 0, f"run --online exited {rc}")
+        online = json.loads(out.getvalue().strip().splitlines()[-1])
+        launched = {k: fa.LAUNCHES[k] - launches0.get(k, 0) for k in fa.LAUNCHES}
+        cache = CurveCache(curves)
+        log(f"phase 20 online: Optimus over {SIM_ONLINE[-3]} synthetic jobs on tpu-v5e 16x16, "
+            f"{online_s:.3f} s wall in this process (host {cpu}; card {smi}); profile_model "
+            f"calls {dict(calls)}, seconds {json.dumps(profile_s)}; cache {cache.models()}; "
+            f"profiling_runs {online.get('profiling_runs')}; flash launches {launched}")
+        check(online["arrivals"] == 1000 and online["num_finished"] == online["arrivals"],
+              f"run --online: not every job finished: {online}")
+        check(sorted(cache.models()) == models, f"the cache holds {cache.models()}, the trace "
+                                                f"names {models}")
+        check(dict(calls) == {m: 1 for m in models}, f"profile_model calls: {dict(calls)}")
+        check(online.get("profiling_runs") == len(models),
+              f"the profiling charge was applied {online.get('profiling_runs')} times, "
+              f"not once for each of {models}")
+        check(not any(launched.values()), f"the profiled (dense) steps launched {launched}")
+        fidelity = {}
+        with open(curves) as f:
+            entries = json.load(f)
+        for model in models:
+            direct_s = measure_step_time(model, batch_size=batch, seq_len=seq, repeats=3,
+                                         device=device)
+            point_s = entries[model]["points"]["1"]
+            fitted_s = cache.get(model).step_time(1)
+            rel = max(abs(point_s - direct_s), abs(fitted_s - direct_s)) / direct_s
+            fidelity[model] = {"profile_s": profile_s[model], "k1_point_ms": point_s * 1e3,
+                               "k1_fitted_ms": fitted_s * 1e3, "direct_ms": direct_s * 1e3,
+                               "rel": rel}
+            log(f"phase 20 profile {model} b{batch} S{seq}: {profile_s[model]:.3f} s to profile; "
+                f"k=1 point {point_s * 1e3:.4f} ms, fitted {fitted_s * 1e3:.4f} ms, direct "
+                f"measure_step_time {direct_s * 1e3:.4f} ms (rel {rel:.3f}, bound "
+                f"{PROFILE_RTOL}) on {smi}")
+            check(rel <= PROFILE_RTOL, f"{model}: the curve's k=1 step is {rel:.1%} off a direct "
+                                       f"measurement")
+        # (iii) offline from the written curves, twice: deterministic
+        offline = sim_replays({f"offline-{i}": argv for i in (1, 2)})
+        check(offline["offline-1"]["summary"] == offline["offline-2"]["summary"],
+              "two offline replays from the same curves disagree")
+        check(offline["offline-1"]["summary"]["num_finished"] == 1000,
+              f"offline: not every job finished: {offline['offline-1']['summary']}")
+        for label, rep in offline.items():
+            log(f"phase 20 replay: Optimus offline from the curves ({label}): "
+                f"{rep['wall_s']:.3f} s wall on host {cpu}; card {smi}")
+    found.update(models=models, online={"summary": online, "wall_s": online_s,
+                                        "profile_calls": dict(calls), "fidelity": fidelity,
+                                        "flash_launches": launched},
+                 offline=offline, phase_s=time.perf_counter() - t_phase)
+    log(f"phase 20: {found['phase_s']:.1f} s")
+    return found
+
+
 def entry_phase(torch) -> dict:
     """Phase 18: ``entry()`` on the card, its logits held to the one-rank
     model's from the same seed on the same tokens (within FWD_TOL)."""
@@ -2919,6 +3128,9 @@ def run() -> dict:
     print(json.dumps({"tools": tools}))
     for name in KERNELS:
         errs[name] = max(errs[name], tools["kernels"][name]["max_abs_err"])
+
+    # --------------------------------------------------------------- 20 --
+    print(json.dumps({"sim": sim_phase(torch, fa, smi)}))
 
     # --------------------------------------------------------------- 14 --
     train = {

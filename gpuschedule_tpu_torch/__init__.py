@@ -1,4 +1,4 @@
-"""gpuschedule_tpu_torch — the PyTorch/CUDA port of gpuschedule_tpu's device layer.
+"""gpuschedule_tpu_torch — the PyTorch/CUDA port of gpuschedule_tpu.
 
 The unit of measured work is the same as in the JAX package: one optimizer
 step of a zoo model (a ``TransformerLM``, dense or MoE, or a ``ResNet``).
@@ -13,9 +13,13 @@ Layering:
     parallel/   mesh, sp rings (dense and flash) and gather, tp, optimizer, the
                 train step and the pipeline
     data/       synthetic token batches (own copy, numpy)
-    profiler/   step and callable timing on the card
+    profiler/   step and callable timing on the card, goodput curves
+    sim/        the trace-replay simulator (host code): engine, jobs, traces, metrics
+    cluster/    the flat pool and the TPU slice allocator the replay runs on
+    policies/   FIFO, SRTF, Tiresias-DLAS, Optimus (online: profiles on the card)
+    obs/        the span tracer and the metrics registry
     convert.py  flax parameter trees -> this package's state_dict
-    cli.py      ``python -m gpuschedule_tpu_torch train ...``
+    cli.py      ``python -m gpuschedule_tpu_torch {run,gen-trace,train,profile} ...``
     entry.py    the driver's entry points: the flagship's forward, the dryrun
 
 Every entry point runs on ``cuda`` unless the caller passes ``device="cpu"``;

@@ -1,6 +1,25 @@
-"""Command line: ``python -m gpuschedule_tpu_torch {train,profile} ...``.
+"""Command line: ``python -m gpuschedule_tpu_torch {run,gen-trace,train,profile} ...``.
 
 Counterparts of the JAX package's subcommands:
+
+- ``run`` replays a trace (``--philly``, ``--trace`` or ``--synthetic N``
+  with its knobs) on a cluster (``--cluster simple|tpu-v5e|tpu-v5p``,
+  ``--chips``, ``--dims``, ``--pods``) under a policy (``--policy
+  fifo|srtf|dlas|optimus``, ``--policy-arg K=V``; Optimus reads
+  ``--curves`` and, with ``--online``, profiles each new model's step on
+  ``--device``: the card unless ``--device cpu``), prints the summary as
+  one JSON line and writes ``jobs.csv``, ``utilization.csv``,
+  ``counters.json``, ``metrics.prom`` and ``metrics.json`` under ``--out``,
+  as the JAX CLI does, to the byte.  ``--prom``, ``--spans``,
+  ``--sample-interval``, ``--sample-on-change``, ``--attrib``,
+  ``--cache-stats`` and ``--max-time`` mean what they mean there.  The
+  flags whose modules the port has not yet (``--net``, ``--faults``,
+  ``--placement`` other than consolidated, ``--cluster gpu``, ``--events``,
+  ``--perfetto``, ``--flush-events``, ``--history``, ``--snapshot*``,
+  ``--resume``, ``--self-profile``, ``--accounting v2``) are not in its
+  parser, which rejects them.
+- ``gen-trace`` writes a synthetic trace CSV (Poisson, or ``--philly-like``),
+  the JAX CLI's file for the same flags, to the byte.
 
 - ``train`` builds a dp x sp x tp mesh and the trainer over it (``--pp``
   >= 2: a (pp, dp) mesh and the pipeline's ``PipelinedLM``, with
@@ -24,7 +43,7 @@ Counterparts of the JAX package's subcommands:
   profile-only there too).
 - ``profile`` measures each ``--model``'s step (any zoo model), fits its goodput curve into
   the ``--curves`` JSON that the simulator's Optimus policy reads
-  (``gpuschedule_tpu run --policy optimus --curves``), and prints
+  (``run --policy optimus --curves``, here or in the JAX package), and prints
   ``{"model", "theta"}`` per model, then ``{"model", "trace"}`` when
   ``--trace-dir`` is given.  Under a launcher every k up to the world's
   ranks is measured on a mesh of the first k ranks (``--sp``/``--tp``
@@ -310,9 +329,238 @@ def _profile(args, device, ks) -> int:
     return 0
 
 
+def _parse_dims(raw: str) -> tuple:
+    return tuple(int(x) for x in raw.lower().split("x"))
+
+
+def build_cluster(args):
+    from gpuschedule_tpu_torch.cluster import SimpleCluster, TpuCluster
+
+    if args.cluster == "simple":
+        return SimpleCluster(args.chips)
+    gen = args.cluster.split("-")[1]
+    dims = _parse_dims(args.dims) if args.dims else None
+    return TpuCluster(gen, dims=dims, num_pods=args.pods)
+
+
+def load_jobs(args) -> list:
+    from gpuschedule_tpu_torch.sim.philly import load_philly_csv
+    from gpuschedule_tpu_torch.sim.trace import generate_poisson_trace, load_trace_csv
+
+    if args.philly:
+        return load_philly_csv(args.philly, max_chips=args.max_job_chips)
+    if args.trace:
+        return load_trace_csv(args.trace)
+    if args.synthetic:
+        return generate_poisson_trace(
+            args.synthetic,
+            seed=args.seed,
+            arrival_rate=args.arrival_rate,
+            mean_duration=args.mean_duration,
+            failure_rate=args.failure_rate,
+            util_range=(args.util_min, 1.0),
+        )
+    raise SystemExit("provide one of --philly / --trace / --synthetic N")
+
+
+def _parse_policy_kwargs(pairs) -> dict:
+    kwargs = {}
+    for kv in pairs or []:
+        k, _, v = kv.partition("=")
+        try:
+            parsed = json.loads(v)
+        except json.JSONDecodeError:
+            parsed = v
+        kwargs[k.replace("-", "_")] = parsed
+    return kwargs
+
+
+def build_policy(args):
+    """The policy ``run`` schedules with: the JAX CLI's, and Optimus
+    measures on ``--device`` (the card unless ``--device cpu``)."""
+    from gpuschedule_tpu_torch.policies import make_policy
+
+    kwargs = _parse_policy_kwargs(args.policy_arg)
+    if args.policy == "optimus":
+        if args.curves:
+            from gpuschedule_tpu_torch.profiler import CurveCache
+
+            kwargs.setdefault("curve_cache", CurveCache(args.curves))
+            if args.online:
+                kwargs.setdefault("online", True)
+        if kwargs.get("online"):
+            from gpuschedule_tpu_torch import resolve_device
+
+            # no card and no --device cpu: refuse before the replay starts
+            try:
+                kwargs.setdefault("device", resolve_device(args.device))
+            except (RuntimeError, ValueError) as e:
+                raise SystemExit(str(e)) from None
+    return make_policy(args.policy, **kwargs)
+
+
+def cmd_run(args) -> int:
+    from gpuschedule_tpu_torch.obs import MetricsRegistry, get_tracer
+    from gpuschedule_tpu_torch.sim import Simulator
+    from gpuschedule_tpu_torch.sim.metrics import MetricsLog
+
+    # --spans enables the tracer; GSTPU_TRACE=1 enables it at import.  Either
+    # way an enabled tracer gets its spans reported below.
+    if args.spans:
+        get_tracer().enable().reset()
+    tracer = get_tracer() if get_tracer().enabled else None
+    registry = MetricsRegistry() if args.out or args.prom else None
+    cluster = build_cluster(args)
+    jobs = load_jobs(args)
+    if args.sample_interval is not None and args.sample_interval <= 0.0:
+        raise SystemExit(
+            f"--sample-interval must be > 0 seconds, got {args.sample_interval}"
+        )
+    metrics = MetricsLog(
+        registry=registry,
+        attribution=bool(args.attrib),
+        cache_telemetry=bool(args.cache_stats),
+    )
+    try:
+        sim = Simulator(
+            cluster, build_policy(args), jobs,
+            metrics=metrics,
+            max_time=args.max_time or float("inf"),
+            sample_interval=args.sample_interval,
+            sample_on_change=bool(args.sample_on_change),
+            accounting=args.accounting,
+        )
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
+    with metrics:
+        res = sim.run()
+    print(json.dumps(res.summary(), sort_keys=True))
+    if args.out:
+        sim.metrics.write(args.out, prefix=args.prefix)
+    else:
+        metrics.close_events()
+    if registry is not None:
+        if args.prom:
+            registry.write(prom_path=args.prom)
+        if args.out:
+            registry.write(
+                prom_path=Path(args.out) / f"{args.prefix}metrics.prom",
+                json_path=Path(args.out) / f"{args.prefix}metrics.json",
+            )
+    if tracer is not None:
+        if args.out:
+            tracer.write_chrome(Path(args.out) / f"{args.prefix}spans.trace.json")
+        print(json.dumps({"spans": tracer.summary()}, sort_keys=True), file=sys.stderr)
+    return 0
+
+
+def cmd_gen_trace(args) -> int:
+    from gpuschedule_tpu_torch.sim.philly import (
+        PHILLY_MEAN_INTERARRIVAL_S,
+        generate_philly_like_trace,
+        save_philly_csv,
+    )
+    from gpuschedule_tpu_torch.sim.trace import generate_poisson_trace, save_trace_csv
+
+    if args.philly_like:
+        rate = (args.arrival_rate if args.arrival_rate is not None
+                else 1.0 / PHILLY_MEAN_INTERARRIVAL_S)
+        jobs = generate_philly_like_trace(args.num_jobs, seed=args.seed, arrival_rate=rate)
+        save_philly_csv(jobs, args.out)
+    else:
+        rate = args.arrival_rate if args.arrival_rate is not None else 1.0 / 60.0
+        jobs = generate_poisson_trace(
+            args.num_jobs,
+            seed=args.seed,
+            arrival_rate=rate,
+            mean_duration=args.mean_duration,
+            failure_rate=args.failure_rate,
+            util_range=(args.util_min, 1.0),
+        )
+        save_trace_csv(jobs, args.out)
+    print(f"wrote {len(jobs)} jobs to {args.out}")
+    return 0
+
+
+def _add_world_args(p) -> None:
+    """The JAX CLI's world-building flags that this package's modules
+    serve (``gpuschedule_tpu/cli.py:_add_world_args``), with their
+    defaults.  Choices the port has not yet are out of the choices."""
+    from gpuschedule_tpu_torch.policies import available
+
+    p.add_argument("--policy", choices=available(), default="fifo")
+    p.add_argument("--policy-arg", action="append", metavar="K=V",
+                   help="policy constructor kwarg (JSON values)")
+    p.add_argument("--cluster", default="tpu-v5e", choices=("simple", "tpu-v5e", "tpu-v5p"))
+    p.add_argument("--chips", type=int, default=64, help="simple cluster size")
+    p.add_argument("--dims", help="TPU pod dims, e.g. 16x16 / 8x8x4")
+    p.add_argument("--pods", type=int, default=1)
+    p.add_argument("--placement", default="consolidated", choices=("consolidated",),
+                   help="slice placement: first-fit toward the origin corner")
+    p.add_argument("--philly", help="Philly-schema trace CSV")
+    p.add_argument("--trace", help="native-schema trace CSV")
+    p.add_argument("--synthetic", type=int, metavar="N", help="generate N-job Poisson trace")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--arrival-rate", type=float, default=1.0 / 60.0)
+    p.add_argument("--mean-duration", type=float, default=3600.0)
+    p.add_argument("--failure-rate", type=float, default=0.0)
+    p.add_argument("--util-min", type=float, default=1.0)
+    p.add_argument("--max-job-chips", type=int, default=256)
+    p.add_argument("--max-time", type=float)
+    p.add_argument("--curves", help="goodput curve cache (optimus)")
+    p.add_argument("--online", action="store_true",
+                   help="profile unseen models live (optimus, with --curves), on --device")
+    p.add_argument("--accounting", choices=("v1",), default="v1",
+                   help="progress-accounting version: v1, the chunk-per-batch "
+                        "integration and its byte-identity contract")
+    p.add_argument("--device", default=None,
+                   help="where --online profiles: 'cpu' for the plain PyTorch versions; "
+                        "default: the card")
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="gpuschedule_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
+    run = sub.add_parser("run", help="replay a trace under a policy")
+    _add_world_args(run)
+    run.add_argument("--out", help="directory for jobs/utilization CSVs")
+    run.add_argument("--prefix", default="")
+    run.add_argument("--spans", action="store_true",
+                     help="enable the span tracer (engine batches + policy invocations); "
+                          "writes spans.trace.json under --out and prints a span summary "
+                          "to stderr")
+    run.add_argument("--attrib", action="store_true",
+                     help="causal slowdown attribution: blame every queued interval with "
+                          "its cause and split running time into legs; adds "
+                          "delay_<cause>_s keys to the summary line")
+    run.add_argument("--sample-interval", type=float, metavar="SECONDS",
+                     help="periodic cluster-side samples every SECONDS of sim time; "
+                          "sampling never perturbs the replay")
+    run.add_argument("--prom", metavar="PATH",
+                     help="write run counters/gauges/histograms in the Prometheus text "
+                          "exposition format (with --out, metrics.prom/metrics.json are "
+                          "written there too)")
+    run.add_argument("--cache-stats", action="store_true",
+                     help="engine cache telemetry: each cache's hit/miss/invalidate counts "
+                          "as cache_<name>_<outcome> summary keys and the "
+                          "engine_cache_events{cache,outcome} registry family")
+    run.add_argument("--sample-on-change", action="store_true",
+                     help="also sample whenever a batch changes the health/degrade masks")
+    run.set_defaults(fn=cmd_run)
+
+    gen = sub.add_parser("gen-trace", help="write a synthetic trace CSV")
+    gen.add_argument("--num-jobs", type=int, required=True)
+    gen.add_argument("--seed", type=int, default=0)
+    gen.add_argument("--philly-like", action="store_true")
+    gen.add_argument("--arrival-rate", type=float, default=None,
+                     help="jobs/sec; defaults to 1/60 (poisson) or the "
+                          "published Philly rate 1/67.3 (--philly-like)")
+    gen.add_argument("--mean-duration", type=float, default=3600.0)
+    gen.add_argument("--failure-rate", type=float, default=0.0)
+    gen.add_argument("--util-min", type=float, default=1.0)
+    gen.add_argument("--out", required=True)
+    gen.set_defaults(fn=cmd_gen_trace)
+
     tr = sub.add_parser("train", help="train a model on a device mesh")
     tr.add_argument("--model", required=True)
     tr.add_argument("--steps", type=int, default=10)

@@ -22,7 +22,7 @@ class ModelConfig:
     d_ff: int = 512
     max_seq: int = 512
     remat: bool = False
-    # n_experts > 0 turns each block's MLP into a routed MoE (not ported yet)
+    # n_experts > 0 turns each block's MLP into a routed MoE (models/transformer.py:MoeMlp)
     n_experts: int = 0
     capacity_factor: float = 1.25
     # experts each token routes to (1 = Switch, 2 = GShard-style top-2)
@@ -69,7 +69,7 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class CnnConfig:
-    """Residual CNN classifier — the vision-model family (not ported yet)."""
+    """Residual CNN classifier — the vision-model family (models/cnn.py)."""
 
     name: str
     channels: tuple = (64, 128, 256)

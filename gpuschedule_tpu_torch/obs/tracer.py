@@ -1,15 +1,18 @@
-"""Span tracer: nested wall-clock spans with a zero-cost disabled path.
+"""Span tracer: nested wall/sim-time spans with a zero-cost disabled path.
 
 The port's own copy of ``gpuschedule_tpu/obs/tracer.py`` (which imports no
 JAX, but the port imports nothing of the JAX package), cut to what the
-port's spans use: ``Span``, ``Tracer`` (``span``, ``record``, ``spans``,
-``summary``), :data:`NULL_SPAN` and the ``GSTPU_TRACE`` switch, so a span
-the port records has the name and attribute keys of the JAX package's
-span for the same call.  The JAX tracer's simulated clock and Chrome
-export have no caller in the port and are left out.
+port's spans use: ``Span`` (with its simulated clock, which the
+simulator's traced loop stamps), ``Tracer`` (``span``, ``record``,
+``spans``, ``summary``, the wall-clock Chrome export that ``run --spans``
+writes), :data:`NULL_SPAN` and the ``GSTPU_TRACE`` switch, so a span the
+port records has the name and attribute keys of the JAX package's span
+for the same call.  The JAX tracer's shared ``origin`` has no caller in
+the port and is left out.
 
 A span is a context-managed interval with a name, a category and
-attributes.  Spans nest: each thread keeps its own depth stack.
+attributes, on the wall clock and, when the caller passes ``sim_now``, on
+the simulated one.  Spans nest: each thread keeps its own depth stack.
 
 Cost:
 
@@ -27,6 +30,7 @@ Enable programmatically (``get_tracer().enable()``) or with
 
 from __future__ import annotations
 
+import json
 import os
 import threading
 import time
@@ -45,10 +49,17 @@ class Span:
     depth: int = 0                   # nesting level within the opening thread
     thread: int = 0                  # opening thread ident
     attrs: Dict[str, Any] = field(default_factory=dict)
+    sim_start: Optional[float] = None   # simulated seconds, when the caller has a sim clock
+    sim_end: Optional[float] = None
 
     def set(self, **attrs) -> "Span":
         """Attach attributes mid-span (e.g. a result computed inside it)."""
         self.attrs.update(attrs)
+        return self
+
+    def end_sim(self, sim_now: float) -> "Span":
+        """Stamp the simulated-clock end (wall end is stamped by ``__exit__``)."""
+        self.sim_end = sim_now
         return self
 
 
@@ -64,6 +75,9 @@ class _NullSpan:
         return False
 
     def set(self, **attrs) -> "_NullSpan":
+        return self
+
+    def end_sim(self, sim_now: float) -> "_NullSpan":
         return self
 
 
@@ -124,12 +138,13 @@ class Tracer:
         self._origin = time.perf_counter()
         return self
 
-    def span(self, name: str, *, cat: str = "", **attrs):
+    def span(self, name: str, *, cat: str = "", sim_now: Optional[float] = None, **attrs):
         """Open a span as a context manager; returns :data:`NULL_SPAN` when
         disabled so the call site stays branch-free."""
         if not self.enabled:
             return NULL_SPAN
-        return _SpanCtx(self, Span(name=name, cat=cat, thread=threading.get_ident(),
+        return _SpanCtx(self, Span(name=name, cat=cat, sim_start=sim_now,
+                                   thread=threading.get_ident(),
                                    attrs=dict(attrs) if attrs else {}))
 
     def record(
@@ -179,6 +194,47 @@ class Tracer:
         for a in agg.values():
             a["mean_s"] = a["total_s"] / a["count"] if a["count"] else 0.0
         return agg
+
+    def chrome_events(self) -> List[dict]:
+        """Spans as Chrome trace-event dicts on the wall-clock timeline
+        (``ts`` in microseconds since the tracer origin), one ``tid`` per
+        opening thread; a span's simulated start and end ride its args."""
+        tids: Dict[int, int] = {}
+        out: List[dict] = [
+            {"name": "process_name", "ph": "M", "pid": 1, "tid": 0,
+             "args": {"name": "tracer (wall clock)"}},
+        ]
+        # spans are collected in close order (inner before outer); the trace
+        # format wants begin order
+        for sp in sorted(self.spans, key=lambda s: s.wall_start):
+            tid = tids.setdefault(sp.thread, len(tids) + 1)
+            args = dict(sp.attrs)
+            if sp.sim_start is not None:
+                args["sim_start_s"] = sp.sim_start
+            if sp.sim_end is not None:
+                args["sim_end_s"] = sp.sim_end
+            out.append({
+                "name": sp.name,
+                "cat": sp.cat or "span",
+                "ph": "X",
+                "ts": round(sp.wall_start * 1e6, 3),
+                "dur": round(sp.wall_dur * 1e6, 3),
+                "pid": 1,
+                "tid": tid,
+                "args": args,
+            })
+        for thread, tid in tids.items():
+            out.insert(1, {"name": "thread_name", "ph": "M", "pid": 1,
+                           "tid": tid, "args": {"name": f"thread-{thread}"}})
+        return out
+
+    def write_chrome(self, path) -> str:
+        """Write the wall-clock span timeline as a ui.perfetto.dev-loadable
+        JSON file; returns the path."""
+        doc = {"traceEvents": self.chrome_events(), "displayTimeUnit": "ms"}
+        with open(path, "w") as f:
+            json.dump(doc, f)
+        return str(path)
 
 
 _TRACER = Tracer(

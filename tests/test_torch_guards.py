@@ -11,11 +11,15 @@ import torch
 
 from gpuschedule_tpu_torch import resolve_device
 from gpuschedule_tpu_torch.cli import main
+from gpuschedule_tpu_torch.cluster import SimpleCluster
 from gpuschedule_tpu_torch.models import MODEL_CONFIGS, CnnConfig, build_model
 from gpuschedule_tpu_torch.parallel import ShardedTrainer
 from gpuschedule_tpu_torch.parallel.tp import Tp
+from gpuschedule_tpu_torch.policies import OptimusPolicy
 from gpuschedule_tpu_torch.ops.overhead_probe import probe_copy
 from gpuschedule_tpu_torch.profiler import measure_step_time, profile_model
+from gpuschedule_tpu_torch.sim import Simulator
+from gpuschedule_tpu_torch.sim.trace import generate_poisson_trace
 from gpuschedule_tpu_torch.tools.overhead_probe import run_grid
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -50,6 +54,14 @@ def test_entry_points_default_to_the_card(no_cuda, tmp_path):
     with pytest.raises(SystemExit, match="no CUDA device"):
         main(["profile", "--model", "transformer-tiny", "--curves", str(tmp_path / "c.json")])
     assert not (tmp_path / "c.json").exists()
+    # the simulator's replay is host code; Optimus's online profiling is not
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        main(["run", "--policy", "optimus", "--online", "--curves", str(tmp_path / "c.json"),
+              "--synthetic", "5"])
+    assert not (tmp_path / "c.json").exists()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Simulator(SimpleCluster(8), OptimusPolicy(online=True),
+                  generate_poisson_trace(3, models=("transformer-tiny",))).run()
 
 
 def test_bench_has_no_cpu_fallback(no_cuda, capsys):
@@ -68,12 +80,18 @@ def test_bench_has_no_cpu_fallback(no_cuda, capsys):
 
 def test_scans_cover_the_bench_and_the_card_table():
     """The import scans below cover these files, the data, checkpoint and
-    tracer modules among them."""
+    tracer modules among them, and the simulator's modules."""
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     assert {"gpuschedule_tpu_torch/bench.py", "gpuschedule_tpu_torch/cluster/cards.py",
             "gpuschedule_tpu_torch/models/cnn.py", "gpuschedule_tpu_torch/data/loader.py",
             "gpuschedule_tpu_torch/parallel/checkpoint.py",
             "gpuschedule_tpu_torch/obs/tracer.py", "chip_smoke.py"} <= names
+    sim = {f"gpuschedule_tpu_torch/{m}.py" for m in (
+        "sim/__init__", "sim/job", "sim/jobset", "sim/trace", "sim/philly", "sim/metrics",
+        "sim/overhead", "sim/engine", "obs/metrics", "obs/perfetto", "cluster/base",
+        "cluster/tpu", "policies/__init__", "policies/base", "policies/preemptive",
+        "policies/fifo", "policies/srtf", "policies/dlas", "policies/optimus")}
+    assert sim <= names
 
 
 def test_unported_options_raise(tmp_path):
