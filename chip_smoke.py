@@ -234,6 +234,21 @@ Phases, each fatal on failure (exit code 1, no result line):
    ``measure_step_time`` at the same batch and length (the profiled steps
    are dense: no flash launches); then the same trace offline from those
    curves twice, equal summaries.  A ``{"sim": ...}`` line;
+21. topology and faults (``topology_phase``): seven commands of the port's
+   CLI, all started together, one process each: ``run`` over
+   ``data/philly_10k.csv`` on the v5p pod under Gandiva and under Themis;
+   ``compare-topology`` over it with two random-scheme seeds (eight
+   replays, the acceptance band, ``summary.json``, the CDFs and
+   ``report.md``); ``run --net`` over 2,000 synthetic jobs on eight v5e
+   4x4 pods (``net_reprices`` above 0) and the same without ``--net``
+   (another summary); ``run --policy gandiva --faults`` over the Philly
+   trace twice (faults, revocations and repairs above 0, the two
+   ``jobs.csv`` byte-equal: the seed-split rule holds across processes).
+   Every job finishes, and each summary line must be the JAX package's
+   for the same command, character for character (TOPOLOGY_PINS, copied
+   from the JAX package's runs: this script cannot import it); each
+   command's wall seconds beside the host CPU, the card's name and power
+   limit.  A ``{"topology": ...}`` line;
 14. a ``{"train": ...}`` line, a ``{"kernels": [...]}`` line (the five
    kernels and the three f32 forms; K1-K3 with their launches on the MoE +
    flash path, phase 13's path and phases 15's and 16's flash cells too,
@@ -389,6 +404,136 @@ SIM_ONLINE = ("--policy", "optimus", "--cluster", "tpu-v5e", "--dims", "16x16",
               "--synthetic", "1000", "--seed", "42")
 SIM_PROFILE = (2, 32)  # OptimusPolicy's profile_batch and profile_seq: what --online measures
 SIM_TIMEOUT_S = 300
+# phase 21: topology and faults; "{tmp}" is the phase's temporary directory
+TOPOLOGY_FAULTS = "mtbf=86400,repair=3600,ckpt=1800"
+TOPOLOGY_NET_WORLD = ("--cluster", "tpu-v5e", "--dims", "4x4", "--pods", "8",
+                      "--synthetic", "2000", "--seed", "42")
+TOPOLOGY_RUNS = {
+    "gandiva": ("run", "--cluster", "tpu-v5p", "--philly", SIM_PHILLY, "--policy", "gandiva"),
+    "themis": ("run", "--cluster", "tpu-v5p", "--philly", SIM_PHILLY, "--policy", "themis"),
+    "compare-topology": ("compare-topology", "--philly", SIM_PHILLY, "--seeds", "2",
+                         "--out", "{tmp}/topology"),
+    "net": ("run", *TOPOLOGY_NET_WORLD, "--net", "--out", "{tmp}/net"),
+    "no-net": ("run", *TOPOLOGY_NET_WORLD),
+    "faults-1": ("run", "--cluster", "tpu-v5p", "--philly", SIM_PHILLY, "--policy", "gandiva",
+                 "--faults", TOPOLOGY_FAULTS, "--out", "{tmp}/faults-1"),
+    "faults-2": ("run", "--cluster", "tpu-v5p", "--philly", SIM_PHILLY, "--policy", "gandiva",
+                 "--faults", TOPOLOGY_FAULTS, "--out", "{tmp}/faults-2"),
+}
+TOPOLOGY_REPLAYS = ("gpu-consolidated", "gpu-random-s0", "gpu-random-s1", "gpu-topology",
+                    "tpu-v5e", "tpu-v5p", "tpu-v5p-2pod", "tpu-v5p-2pod-net")
+TOPOLOGY_TIMEOUT_S = 400
+# The JAX package's stdout line for each command above (both faults runs
+# print the "faults" line), as ``python -m gpuschedule_tpu`` printed it on
+# the CPU; tests/test_torch_faults.py recomputes the "net" line from the
+# JAX package.
+TOPOLOGY_PINS = {
+    'gandiva': (
+        '{"arrivals": 10000.0, "avg_jct": 4135.120928031582, "goodput_lost_chip_s": 0.0, "goo'
+        'dput_restart_overhead_chip_s": 8290468.963565073, "goodput_total_chip_s": 187690689.'
+        '38884622, "goodput_useful_chip_s": 179400220.42528114, "grows": 8522.0, "makespan": '
+        '801273.5281441035, "max_slowdown": 514.8603948266858, "mean_utilization": 0.50472761'
+        '34650939, "migrations": 989.0, "num_done": 6897, "num_failed": 1191, "num_finished":'
+        ' 10000, "num_killed": 1912, "num_rejected": 0, "num_unfinished": 0, "p95_queueing_de'
+        'lay": 220.7860000000801, "p95_slowdown": 2.304356183746152, "preemptions": 63370.0}'
+    ),
+    'themis': (
+        '{"arrivals": 10000.0, "avg_jct": 8831.446231170696, "goodput_lost_chip_s": 0.0, "goo'
+        'dput_restart_overhead_chip_s": 0.0, "goodput_total_chip_s": 161978684.85000002, "goo'
+        'dput_useful_chip_s": 161978684.85000002, "makespan": 1902793.0648753555, "max_slowdo'
+        'wn": 198.27288979696038, "mean_utilization": 0.332507876239062, "num_done": 6897, "n'
+        'um_failed": 1191, "num_finished": 10000, "num_killed": 1912, "num_rejected": 0, "num'
+        '_unfinished": 0, "p95_queueing_delay": 12052.630000000005, "p95_slowdown": 2.8243894'
+        '395474176, "preemptions": 13285.0}'
+    ),
+    'compare-topology': (
+        '{"acceptance": {"jct_delta_pct": 478.170770445228, "makespan_delta_pct": 9.868474499'
+        '127357, "threshold_pct": 5.0, "within_5pct": false}, "contention": {"jct_ratio_net_o'
+        'ver_static": null, "mean_link_utilization": {"core": 0.0017460131054161181, "uplink/'
+        'pod0": 0.0006504855270451638, "uplink/pod1": 0.00022252102566289888}, "multislice_jo'
+        'bs": 0, "net_reprices": 0, "oversubscription": 4.0}, "dcn_vs_ici": {"jct_ratio_2pod_'
+        'over_1pod": null, "multislice_jobs": 0}, "gpu-consolidated": {"arrivals": 10000.0, "'
+        'avg_jct": 44341.29552204446, "goodput_lost_chip_s": 0.0, "goodput_restart_overhead_c'
+        'hip_s": 0.0, "goodput_total_chip_s": 191160538.0242222, "goodput_useful_chip_s": 191'
+        '160538.0242222, "makespan": 1680076.9405555553, "max_slowdown": 3292.3177814814803, '
+        '"mean_utilization": 0.4444563422257284, "num_done": 6897, "num_failed": 1191, "num_f'
+        'inished": 10000, "num_killed": 1912, "num_rejected": 0, "num_unfinished": 0, "p95_qu'
+        'eueing_delay": 83696.14000000025, "p95_slowdown": 926.424323834416}, "gpu-random-mea'
+        'n": {"avg_jct": 55218.11181462224, "makespan": 1904534.2791666668, "seeds": 2}, "gpu'
+        '-random-s0": {"arrivals": 10000.0, "avg_jct": 55815.309443599996, "goodput_lost_chip'
+        '_s": 0.0, "goodput_restart_overhead_chip_s": 0.0, "goodput_total_chip_s": 202852680.'
+        '59577778, "goodput_useful_chip_s": 202852680.59577778, "makespan": 1904818.119333333'
+        '3, "max_slowdown": 4196.635429629633, "mean_utilization": 0.4159941967869267, "num_d'
+        'one": 6897, "num_failed": 1191, "num_finished": 10000, "num_killed": 1912, "num_reje'
+        'cted": 0, "num_unfinished": 0, "p95_queueing_delay": 104972.92033333331, "p95_slowdo'
+        'wn": 1192.957734820179}, "gpu-random-s1": {"arrivals": 10000.0, "avg_jct": 54620.914'
+        '185644484, "goodput_lost_chip_s": 0.0, "goodput_restart_overhead_chip_s": 0.0, "good'
+        'put_total_chip_s": 202446777.5973333, "goodput_useful_chip_s": 202446777.5973333, "m'
+        'akespan": 1904250.439, "max_slowdown": 4136.57506666667, "mean_utilization": 0.41528'
+        '55679029638, "num_done": 6897, "num_failed": 1191, "num_finished": 10000, "num_kille'
+        'd": 1912, "num_rejected": 0, "num_unfinished": 0, "p95_queueing_delay": 103396.79966'
+        '666666, "p95_slowdown": 1162.1242876312258}, "gpu-topology": {"arrivals": 10000.0, "'
+        'avg_jct": 431467.5832676665, "goodput_lost_chip_s": 0.0, "goodput_restart_overhead_c'
+        'hip_s": 0.0, "goodput_total_chip_s": 169092415.49533337, "goodput_useful_chip_s": 16'
+        '9092415.49533337, "makespan": 2149287.5005555553, "max_slowdown": 30987.80818518517,'
+        ' "mean_utilization": 0.3073191687282013, "num_done": 6897, "num_failed": 1191, "num_'
+        'finished": 10000, "num_killed": 1912, "num_rejected": 0, "num_unfinished": 0, "p95_q'
+        'ueueing_delay": 898892.3782222217, "p95_slowdown": 9989.507053674044}, "tpu-v5e": {"'
+        'arrivals": 10000.0, "avg_jct": 368085.1379626, "goodput_lost_chip_s": 0.0, "goodput_'
+        'restart_overhead_chip_s": 0.0, "goodput_total_chip_s": 161978684.84999996, "goodput_'
+        'useful_chip_s": 161978684.84999996, "makespan": 2062905.7989999996, "max_slowdown": '
+        '28168.114499999985, "mean_utilization": 0.3067174652386116, "num_done": 6897, "num_f'
+        'ailed": 1191, "num_finished": 10000, "num_killed": 1912, "num_rejected": 0, "num_unf'
+        'inished": 0, "p95_queueing_delay": 813537.0819999997, "p95_slowdown": 8553.963724589'
+        '545}, "tpu-v5p": {"arrivals": 10000.0, "avg_jct": 256368.40994519982, "goodput_lost_'
+        'chip_s": 0.0, "goodput_restart_overhead_chip_s": 0.0, "goodput_total_chip_s": 161978'
+        '684.84999996, "goodput_useful_chip_s": 161978684.84999996, "makespan": 1845874.90499'
+        '99993, "max_slowdown": 20976.445866666632, "mean_utilization": 0.34278012880581077, '
+        '"num_done": 6897, "num_failed": 1191, "num_finished": 10000, "num_killed": 1912, "nu'
+        'm_rejected": 0, "num_unfinished": 0, "p95_queueing_delay": 597916.654, "p95_slowdown'
+        '": 5748.442396736725}, "tpu-v5p-2pod": {"arrivals": 10000.0, "avg_jct": 4762.2803997'
+        ', "goodput_lost_chip_s": 0.0, "goodput_restart_overhead_chip_s": 0.0, "goodput_total'
+        '_chip_s": 161978684.85000002, "goodput_useful_chip_s": 161978684.85000002, "makespan'
+        '": 1449540.638, "max_slowdown": 76.88179999999896, "mean_utilization": 0.21825163817'
+        '70154, "num_done": 6897, "num_failed": 1191, "num_finished": 10000, "num_killed": 19'
+        '12, "num_rejected": 0, "num_unfinished": 0, "p95_queueing_delay": 0.0, "p95_slowdown'
+        '": 1.0000000000002145}, "tpu-v5p-2pod-net": {"arrivals": 10000.0, "avg_jct": 4762.28'
+        '03997, "goodput_lost_chip_s": 0.0, "goodput_restart_overhead_chip_s": 0.0, "goodput_'
+        'total_chip_s": 161978684.85000002, "goodput_useful_chip_s": 161978684.85000002, "mak'
+        'espan": 1449540.638, "max_slowdown": 76.88179999999896, "mean_utilization": 0.218251'
+        '6381770154, "num_done": 6897, "num_failed": 1191, "num_finished": 10000, "num_killed'
+        '": 1912, "num_rejected": 0, "num_unfinished": 0, "p95_queueing_delay": 0.0, "p95_slo'
+        'wdown": 1.0000000000002145}}'
+    ),
+    'net': (
+        '{"arrivals": 2000.0, "avg_jct": 175713.9540733729, "goodput_lost_chip_s": 0.0, "good'
+        'put_restart_overhead_chip_s": 0.0, "goodput_total_chip_s": 43904688.25049581, "goodp'
+        'ut_useful_chip_s": 43904688.25049581, "makespan": 506659.11244535167, "max_slowdown"'
+        ': 6014.361720848327, "mean_utilization": 0.6769943903732617, "net_reprices": 1535.0,'
+        ' "num_done": 2000, "num_failed": 0, "num_finished": 2000, "num_killed": 0, "num_reje'
+        'cted": 0, "num_unfinished": 0, "p95_queueing_delay": 329821.0714169774, "p95_slowdow'
+        'n": 741.2345711996655}'
+    ),
+    'no-net': (
+        '{"arrivals": 2000.0, "avg_jct": 178205.2932848283, "goodput_lost_chip_s": 0.0, "good'
+        'put_restart_overhead_chip_s": 0.0, "goodput_total_chip_s": 43871300.27011449, "goodp'
+        'ut_useful_chip_s": 43871300.27011449, "makespan": 514466.13160818577, "max_slowdown"'
+        ': 6135.4310214959505, "mean_utilization": 0.6662139882539474, "num_done": 2000, "num'
+        '_failed": 0, "num_finished": 2000, "num_killed": 0, "num_rejected": 0, "num_unfinish'
+        'ed": 0, "p95_queueing_delay": 336937.5837547229, "p95_slowdown": 754.609081233344}'
+    ),
+    'faults': (
+        '{"arrivals": 10000.0, "avg_jct": 10227.372853725221, "fault_revocations": 2503.0, "f'
+        'aults": 4763.0, "faults_mtbf": 4763.0, "goodput_lost_chip_s": 41164600.651230134, "g'
+        'oodput_restart_overhead_chip_s": 18188056.67532588, "goodput_total_chip_s": 22244694'
+        '9.7320728, "goodput_useful_chip_s": 163094292.4055168, "grows": 517.0, "makespan": 1'
+        '628140.1104805183, "max_slowdown": 9043.590511215585, "mean_utilization": 0.53369694'
+        '15577206, "migrations": 4831.0, "num_done": 6897, "num_failed": 1191, "num_finished"'
+        ': 10000, "num_killed": 1912, "num_rejected": 0, "num_unfinished": 0, "p95_queueing_d'
+        'elay": 262.0355165824294, "p95_slowdown": 3.2980999999990064, "preemptions": 116101.'
+        '0, "repairs": 4755.0}'
+    ),
+}
 ROOT = Path(__file__).resolve().parent
 
 
@@ -476,12 +621,13 @@ def hmma_counts(lib_path: str, tool: str) -> dict:
 
 
 def profile_steps(torch, trainer, state, tokens, steps: int = 2, kernels=(), feed=None,
-                  windows=None) -> dict:
+                  agree=None) -> dict:
     """Device time by kernel over ``steps`` train steps in a profiler window
     (``device_window``: pads and a marker first, a lost window taken again
-    up to ``windows`` windows, by default the harness's WINDOWS; ranks that
-    step together pass 1, and a feed holds a window's steps for each window
-    that may be taken again), each step on
+    up to the harness's WINDOWS windows; ranks that
+    step together pass ``agree`` (:func:`ranks_agree`) and take a window
+    again together, and a feed holds a window's steps for each window that
+    may be taken again), each step on
     ``tokens`` or, given ``feed``, on the feed's next batch: per-step ms of
     the top kernels, their sum, the busy share of the profiled window's
     wall time (the profiler's own overhead lands in the idle share; the
@@ -489,7 +635,7 @@ def profile_steps(torch, trainer, state, tokens, steps: int = 2, kernels=(), fee
     each kernel named in ``kernels``, and ``steps_run``, the steps of every
     window taken (a caller's launch counters count them all).  A failing
     step, and a run of lost windows, fail the run."""
-    from gpuschedule_tpu_torch.profiler.harness import WINDOWS, LostWindow, device_window
+    from gpuschedule_tpu_torch.profiler.harness import LostWindow, device_window
 
     box = [state]
 
@@ -497,8 +643,7 @@ def profile_steps(torch, trainer, state, tokens, steps: int = 2, kernels=(), fee
         box[0], _ = trainer.step(box[0], tokens if feed is None else next(feed))
 
     try:
-        win = device_window(step, steps, what="profile_steps", windows=windows or WINDOWS,
-                            warm=False)
+        win = device_window(step, steps, what="profile_steps", warm=False, agree=agree)
     except LostWindow as e:
         raise SmokeFailure(str(e)) from None
     by_name: dict = {}
@@ -516,6 +661,16 @@ def profile_steps(torch, trainer, state, tokens, steps: int = 2, kernels=(), fee
         "top": [{"kernel": n[:90], "ms_per_step": t / steps, "share": t / busy} for n, t in top],
         "launches_per_step": {k: c / steps for k, c in counts.items()},
     }
+
+
+def ranks_agree(torch, dist):
+    """``device_window``'s ``agree`` for ranks that step together: whether
+    every rank kept its window, by an all-reduce (MIN) of the verdicts."""
+    def agree(kept: bool) -> bool:
+        flag = torch.tensor([int(kept)], dtype=torch.int32)
+        dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+        return bool(flag.item())
+    return agree
 
 
 def tile_rel_err(torch, got, ref) -> float:
@@ -2158,7 +2313,7 @@ def _pp_checks(torch, dist) -> dict:
         cell["launch_calls"] = host_launch_calls(lambda: trainer.step(state, data))
         if flash:
             before = dict(fa.LAUNCHES)
-            prof = profile_steps(torch, trainer, state, data, windows=1,
+            prof = profile_steps(torch, trainer, state, data, agree=ranks_agree(torch, dist),
                                  kernels=[KERNELS[name][0] for name in KERNELS])
             cell["window"] = {"counters": {n: (fa.LAUNCHES[n] - before[n]) / prof["steps_run"]
                                            for n in KERNELS},
@@ -2459,33 +2614,60 @@ def host_cpu() -> str:
     return f"{name or 'model not reported'}, {platform.machine()}, {os.cpu_count()} CPUs"
 
 
-def sim_replays(argvs: dict) -> dict:
-    """``python -m gpuschedule_tpu_torch run`` once for each of ``argvs``
-    (label -> arguments), all started together, one process each: each
-    one's summary line and wall seconds (interpreter start and imports
-    included)."""
-    procs = {}
+def cli_runs(argvs: dict, timeout: float = SIM_TIMEOUT_S) -> dict:
+    """``python -m gpuschedule_tpu_torch`` once for each of ``argvs`` (label
+    -> the command's arguments), all started together, one process each:
+    each one's stdout line (it must print exactly one), that line parsed,
+    and its wall seconds (interpreter start and imports included)."""
+    import threading
+
+    procs, ended = {}, {}
+
+    def wait(label, t0, proc):
+        # each process's own end: a thread a process, so one that ends
+        # early is not timed to the end of another
+        try:
+            ended[label] = (*proc.communicate(timeout=timeout), time.perf_counter() - t0)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+
     for label, argv in argvs.items():
-        cmd = [sys.executable, "-m", "gpuschedule_tpu_torch", "run", *argv]
+        cmd = [sys.executable, "-m", "gpuschedule_tpu_torch", *argv]
         procs[label] = (time.perf_counter(), subprocess.Popen(
             cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    waiters = [threading.Thread(target=wait, args=(label, t0, proc))
+               for label, (t0, proc) in procs.items()]
+    for t in waiters:
+        t.start()
     found = {}
     try:
-        for label, (t0, proc) in procs.items():
-            out, err = proc.communicate(timeout=SIM_TIMEOUT_S)
-            wall_s = time.perf_counter() - t0
+        for t in waiters:
+            t.join()
+        for label, (_, proc) in procs.items():
+            check(label in ended, f"{argvs[label][0]} ({label}) ran past {timeout} s")
+            out, err, wall_s = ended[label]
             lines = out.strip().splitlines()
             for text in err.splitlines():
-                print(f"run ({label}): {text}", file=sys.stderr)
+                print(f"{argvs[label][0]} ({label}): {text}", file=sys.stderr)
             check(proc.returncode == 0 and len(lines) == 1,
-                  f"run ({label}) exited {proc.returncode}: {err.strip()[-2000:]}")
-            found[label] = {"summary": json.loads(lines[0]), "wall_s": wall_s}
+                  f"{argvs[label][0]} ({label}) exited {proc.returncode}: "
+                  f"{err.strip()[-2000:]}")
+            found[label] = {"line": lines[0], "summary": json.loads(lines[0]), "wall_s": wall_s}
     finally:
         for _, proc in procs.values():
             if proc.poll() is None:
                 proc.kill()
                 proc.communicate()
     return found
+
+
+def sim_replays(argvs: dict) -> dict:
+    """``run`` once for each of ``argvs`` (label -> arguments), as
+    :func:`cli_runs` starts them: each one's summary and wall seconds."""
+    found = cli_runs({label: ["run", *argv] for label, argv in argvs.items()})
+    return {label: {"summary": rep["summary"], "wall_s": rep["wall_s"]}
+            for label, rep in found.items()}
 
 
 def sim_phase(torch, fa, smi, device=None) -> dict:
@@ -2613,6 +2795,75 @@ def sim_phase(torch, fa, smi, device=None) -> dict:
                                         "flash_launches": launched},
                  offline=offline, phase_s=time.perf_counter() - t_phase)
     log(f"phase 20: {found['phase_s']:.1f} s")
+    return found
+
+
+def topology_phase(smi) -> dict:
+    """Phase 21: Gandiva and Themis, ``compare-topology``, the shared fabric
+    and fault injection, through the port's CLI (``TOPOLOGY_RUNS``, all
+    started together, one process each).  Each stdout line must equal the
+    JAX package's (``TOPOLOGY_PINS``); every job finishes; the topology
+    comparison has its eight replays, the acceptance band and its files;
+    the fabric re-prices and changes the summary; the faults fire, and
+    the two faulty replays write byte-equal ``jobs.csv``."""
+    t_phase = time.perf_counter()
+    cpu = host_cpu()
+    found = {"card": smi, "host_cpu": cpu, "wall_s": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = cli_runs({label: [a.replace("{tmp}", tmp) for a in argv]
+                         for label, argv in TOPOLOGY_RUNS.items()}, timeout=TOPOLOGY_TIMEOUT_S)
+        for label, rep in runs.items():
+            found["wall_s"][label] = rep["wall_s"]
+            log(f"phase 21 {label}: python -m gpuschedule_tpu_torch "
+                f"{' '.join(TOPOLOGY_RUNS[label])}: {rep['wall_s']:.3f} s wall ({len(runs)} "
+                f"commands at once, one process each) on host {cpu}; card {smi}")
+        for label, rep in runs.items():
+            pin = TOPOLOGY_PINS["faults" if label.startswith("faults") else label]
+            check(rep["line"] == pin, f"{label}: the port's line is not the JAX package's:\n"
+                                      f"port {rep['line']}\nJAX  {pin}")
+        # 1: the Philly trace under Gandiva and Themis
+        for label in ("gandiva", "themis", "faults-1"):
+            summ = runs[label]["summary"]
+            check(summ["arrivals"] == 10000 and summ["num_finished"] == summ["arrivals"],
+                  f"{label}: not every job of {SIM_PHILLY} finished: {summ}")
+        # 2: the topology comparison
+        topo = runs["compare-topology"]["summary"]
+        for name in TOPOLOGY_REPLAYS:
+            check(topo[name]["num_finished"] == 10000,
+                  f"compare-topology {name}: {topo[name]['num_finished']} of 10000 finished")
+        check({"jct_delta_pct", "makespan_delta_pct", "within_5pct"} <= set(topo["acceptance"]),
+              f"compare-topology: no acceptance band: {topo.get('acceptance')}")
+        written = sorted(os.listdir(os.path.join(tmp, "topology")))
+        want = sorted(["summary.json", "report.md", *(f"cdf_{n}.csv" for n in TOPOLOGY_REPLAYS)])
+        check(written == want, f"compare-topology wrote {written}, not {want}")
+        # 3: the shared fabric
+        with open(os.path.join(tmp, "net", "counters.json")) as f:
+            net_counters = json.load(f)
+        check(net_counters.get("net_reprices", 0) > 0, f"--net re-priced nothing: {net_counters}")
+        check(runs["net"]["summary"] != runs["no-net"]["summary"],
+              "--net left the summary as it is without the fabric")
+        # 4: the faults, twice
+        with open(os.path.join(tmp, "faults-1", "counters.json")) as f:
+            fault_counters = json.load(f)
+        for key in ("faults", "fault_revocations", "repairs"):
+            check(fault_counters.get(key, 0) > 0, f"--faults: no {key}: {fault_counters}")
+        jobs = [Path(tmp, label, "jobs.csv").read_bytes() for label in ("faults-1", "faults-2")]
+        check(jobs[0] == jobs[1], "two faulty replays in two processes wrote different jobs.csv")
+    acc = topo["acceptance"]
+    log(f"phase 21: Gandiva avg JCT {runs['gandiva']['summary']['avg_jct']:.2f} s, Themis "
+        f"{runs['themis']['summary']['avg_jct']:.2f} s; acceptance band jct "
+        f"{acc['jct_delta_pct']:.2f}%, makespan {acc['makespan_delta_pct']:.2f}%; net_reprices "
+        f"{net_counters['net_reprices']}; faults {fault_counters['faults']}, revocations "
+        f"{fault_counters['fault_revocations']}, repairs {fault_counters['repairs']}; every "
+        f"line the JAX package's")
+    found.update(
+        pins_equal=True, acceptance=acc, net_reprices=net_counters["net_reprices"],
+        faults={k: fault_counters[k] for k in ("faults", "fault_revocations", "repairs",
+                                               "migrations")},
+        avg_jct={label: runs[label]["summary"]["avg_jct"]
+                 for label in ("gandiva", "themis", "net", "no-net", "faults-1")},
+        phase_s=time.perf_counter() - t_phase)
+    log(f"phase 21: {found['phase_s']:.1f} s")
     return found
 
 
@@ -3131,6 +3382,9 @@ def run() -> dict:
 
     # --------------------------------------------------------------- 20 --
     print(json.dumps({"sim": sim_phase(torch, fa, smi)}))
+
+    # --------------------------------------------------------------- 21 --
+    print(json.dumps({"topology": topology_phase(smi)}))
 
     # --------------------------------------------------------------- 14 --
     train = {

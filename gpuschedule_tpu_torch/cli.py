@@ -1,25 +1,31 @@
-"""Command line: ``python -m gpuschedule_tpu_torch {run,gen-trace,train,profile} ...``.
+"""Command line: ``python -m gpuschedule_tpu_torch {run,gen-trace,compare-topology,train,profile} ...``.
 
 Counterparts of the JAX package's subcommands:
 
 - ``run`` replays a trace (``--philly``, ``--trace`` or ``--synthetic N``
-  with its knobs) on a cluster (``--cluster simple|tpu-v5e|tpu-v5p``,
-  ``--chips``, ``--dims``, ``--pods``) under a policy (``--policy
-  fifo|srtf|dlas|optimus``, ``--policy-arg K=V``; Optimus reads
-  ``--curves`` and, with ``--online``, profiles each new model's step on
-  ``--device``: the card unless ``--device cpu``), prints the summary as
-  one JSON line and writes ``jobs.csv``, ``utilization.csv``,
-  ``counters.json``, ``metrics.prom`` and ``metrics.json`` under ``--out``,
-  as the JAX CLI does, to the byte.  ``--prom``, ``--spans``,
-  ``--sample-interval``, ``--sample-on-change``, ``--attrib``,
-  ``--cache-stats`` and ``--max-time`` mean what they mean there.  The
-  flags whose modules the port has not yet (``--net``, ``--faults``,
-  ``--placement`` other than consolidated, ``--cluster gpu``, ``--events``,
-  ``--perfetto``, ``--flush-events``, ``--history``, ``--snapshot*``,
-  ``--resume``, ``--self-profile``, ``--accounting v2``) are not in its
-  parser, which rejects them.
+  with its knobs) on a cluster (``--cluster simple|tpu-v5e|tpu-v5p|gpu``,
+  ``--chips``, ``--dims``, ``--pods``, ``--gpu-shape``; ``--placement``
+  and ``--placement-seed`` choose where gangs go) under a policy
+  (``--policy fifo|srtf|dlas|gandiva|optimus|themis``, ``--policy-arg
+  K=V``; Optimus reads ``--curves`` and, with ``--online``, profiles each
+  new model's step on ``--device``: the card unless ``--device cpu``),
+  with the shared DCN fabric (``--net [SPEC]``) and injected faults
+  (``--faults SPEC``) if asked, prints the summary as one JSON line and
+  writes ``jobs.csv``, ``utilization.csv``, ``counters.json``,
+  ``metrics.prom`` and ``metrics.json`` under ``--out``, as the JAX CLI
+  does, to the byte.  ``--prom``, ``--spans``, ``--sample-interval``,
+  ``--sample-on-change``, ``--attrib``, ``--cache-stats`` and
+  ``--max-time`` mean what they mean there.  The flags whose modules the
+  port has not yet (``--events``, ``--perfetto``, ``--flush-events``,
+  ``--history``, ``--snapshot*``, ``--resume``, ``--self-profile``,
+  ``--accounting v2``) are not in its parser, which rejects them.
 - ``gen-trace`` writes a synthetic trace CSV (Poisson, or ``--philly-like``),
   the JAX CLI's file for the same flags, to the byte.
+- ``compare-topology`` replays one trace on GPU clusters under their
+  placement schemes and on TPU slice clusters (one pod, two pods, two pods
+  on the shared fabric), prints every summary with the acceptance band
+  as one JSON line and writes ``summary.json``, ``cdf_*.csv`` and
+  ``report.md`` under ``--out``, as the JAX CLI does, to the byte.
 
 - ``train`` builds a dp x sp x tp mesh and the trainer over it (``--pp``
   >= 2: a (pp, dp) mesh and the pipeline's ``PipelinedLM``, with
@@ -333,14 +339,84 @@ def _parse_dims(raw: str) -> tuple:
     return tuple(int(x) for x in raw.lower().split("x"))
 
 
-def build_cluster(args):
-    from gpuschedule_tpu_torch.cluster import SimpleCluster, TpuCluster
+def build_cluster(args, net=None):
+    from gpuschedule_tpu_torch.cluster import GpuCluster, SimpleCluster, TpuCluster
+    from gpuschedule_tpu_torch.placement import with_placement
 
     if args.cluster == "simple":
-        return SimpleCluster(args.chips)
-    gen = args.cluster.split("-")[1]
-    dims = _parse_dims(args.dims) if args.dims else None
-    return TpuCluster(gen, dims=dims, num_pods=args.pods)
+        cluster = SimpleCluster(args.chips)
+    elif args.cluster in ("tpu-v5e", "tpu-v5p"):
+        gen = args.cluster.split("-")[1]
+        dims = _parse_dims(args.dims) if args.dims else None
+        cluster = TpuCluster(gen, dims=dims, num_pods=args.pods)
+    elif args.cluster == "gpu":
+        sw, npsw, gpn = _parse_dims(args.gpu_shape)
+        cluster = GpuCluster(
+            num_switches=sw, nodes_per_switch=npsw, gpus_per_node=gpn,
+            seed=args.placement_seed,
+        )
+    else:
+        raise SystemExit(f"unknown cluster {args.cluster!r}")
+    if args.placement != "consolidated" and not isinstance(cluster, SimpleCluster):
+        # with_placement validates per flavor: an unknown or mismatched
+        # scheme must error, not run a different experiment than asked
+        try:
+            cluster = with_placement(
+                cluster, args.placement, seed=args.placement_seed, net=net
+            )
+        except ValueError as e:
+            raise SystemExit(str(e)) from None
+    return cluster
+
+
+def build_net(args):
+    """The shared-fabric contention model for ``run --net`` (None when the
+    flag is absent: the static-factor path)."""
+    if not getattr(args, "net", None):
+        return None
+    if args.cluster not in ("tpu-v5e", "tpu-v5p"):
+        raise SystemExit(
+            "--net models the TPU DCN fabric; use --cluster tpu-v5e/tpu-v5p"
+        )
+    from gpuschedule_tpu_torch.net import NetConfig, NetModel, parse_net_spec
+
+    try:
+        config = (
+            parse_net_spec(args.net) if isinstance(args.net, str) else NetConfig()
+        )
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
+    return NetModel(config)
+
+
+def build_fault_plan(args, cluster, jobs):
+    """Fault injection (faults/): one ``--seed`` governs every stochastic
+    stream in the run.  Trace synthesis keeps the bare seed, while each
+    fault process derives its own ``random.Random(f"{seed}:faults:<process>")``
+    stream, so the same seed reproduces the trace and the fault schedule
+    together, and changing the fault config never perturbs the trace (the
+    seed-split rule, in faults/schedule.py)."""
+    if not args.faults:
+        return None
+    from gpuschedule_tpu_torch.faults import (
+        fault_horizon,
+        make_fault_plan,
+        parse_fault_spec,
+    )
+
+    try:
+        fconfig, frecovery = parse_fault_spec(args.faults)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
+    horizon = args.max_time if args.max_time else fault_horizon(jobs)
+    try:
+        return make_fault_plan(
+            cluster, fconfig, frecovery, horizon=horizon, seed=args.seed
+        )
+    except ValueError as e:
+        # config-vs-cluster mismatches (a domain weight naming a level
+        # this topology has no domains for) are user errors
+        raise SystemExit(str(e)) from None
 
 
 def load_jobs(args) -> list:
@@ -410,8 +486,17 @@ def cmd_run(args) -> int:
         get_tracer().enable().reset()
     tracer = get_tracer() if get_tracer().enabled else None
     registry = MetricsRegistry() if args.out or args.prom else None
-    cluster = build_cluster(args)
+    net_model = build_net(args)
+    if args.placement == "contention" and net_model is None:
+        # without the net model every pod scores equally and the scheme
+        # would quietly become consolidated: refuse
+        raise SystemExit(
+            "--placement contention scores pods by residual DCN bandwidth "
+            "and needs the fabric model: add --net"
+        )
+    cluster = build_cluster(args, net=net_model)
     jobs = load_jobs(args)
+    fault_plan = build_fault_plan(args, cluster, jobs)
     if args.sample_interval is not None and args.sample_interval <= 0.0:
         raise SystemExit(
             f"--sample-interval must be > 0 seconds, got {args.sample_interval}"
@@ -426,6 +511,8 @@ def cmd_run(args) -> int:
             cluster, build_policy(args), jobs,
             metrics=metrics,
             max_time=args.max_time or float("inf"),
+            faults=fault_plan,
+            net=net_model,
             sample_interval=args.sample_interval,
             sample_on_change=bool(args.sample_on_change),
             accounting=args.accounting,
@@ -482,6 +569,127 @@ def cmd_gen_trace(args) -> int:
     return 0
 
 
+def cmd_compare_topology(args) -> int:
+    """The topology comparison: NVLink GPU nodes against contiguous TPU
+    slices.
+
+    Computes the acceptance band (the TPU-v5p replay's avg-JCT and makespan
+    delta against the GPU baseline under the consolidated scheme, on the
+    same trace) and averages the random scheme over ``--seeds`` draws, so
+    that the GPU-against-TPU contrast is not a single sample.
+    """
+    from statistics import mean
+
+    from gpuschedule_tpu_torch.analysis import acceptance_band, write_report
+    from gpuschedule_tpu_torch.cluster import GpuCluster, TpuCluster
+    from gpuschedule_tpu_torch.net import NetModel
+    from gpuschedule_tpu_torch.policies import make_policy
+    from gpuschedule_tpu_torch.sim import Simulator
+    from gpuschedule_tpu_torch.sim.philly import load_philly_csv
+    from gpuschedule_tpu_torch.sim.trace import generate_poisson_trace
+
+    def jobs(num_pods: int = 1):
+        if args.philly:
+            # multi-pod configs keep the trace's whales as multislice
+            # gangs instead of clamping them to one pod
+            return load_philly_csv(args.philly, num_pods=num_pods)
+        return generate_poisson_trace(args.synthetic or 200, seed=args.seed)
+
+    gpu_shape = _parse_dims(args.gpu_shape)
+
+    def gpu(scheme: str, seed: int = 0) -> GpuCluster:
+        return GpuCluster(
+            num_switches=gpu_shape[0], nodes_per_switch=gpu_shape[1],
+            gpus_per_node=gpu_shape[2], scheme=scheme, seed=seed)
+
+    configs = {"gpu-consolidated": gpu("consolidated")}
+    for s in range(max(1, args.seeds)):
+        configs[f"gpu-random-s{s}"] = gpu("random", seed=s)
+    configs.update({
+        "gpu-topology": gpu("topology"),
+        "tpu-v5p": TpuCluster("v5p"),
+        "tpu-v5e": TpuCluster("v5e"),
+        # the ICI-against-DCN boundary: the same generation, two pods
+        # joined by DCN, whales run as multislice gangs at a speed_factor
+        # < 1 instead of being clamped into one pod
+        "tpu-v5p-2pod": TpuCluster("v5p", num_pods=2),
+    })
+    pods_of = {"tpu-v5p-2pod": 2}
+    pol_kwargs = _parse_policy_kwargs(args.policy_arg)
+    results = {}
+    for name, cluster in configs.items():
+        results[name] = Simulator(
+            cluster, make_policy(args.policy, **pol_kwargs),
+            jobs(pods_of.get(name, 1)),
+        ).run()
+
+    # contention column: the 2-pod fleet again with the shared-fabric
+    # model on, whales paying a max-min fair share of the DCN instead of
+    # each assuming an isolated fabric.  The ratio against the static
+    # 2-pod replay is the shared-fabric penalty under the default 4:1
+    # core oversubscription; mean link utilization says how loaded it was.
+    net_model = NetModel()
+    results["tpu-v5p-2pod-net"] = Simulator(
+        TpuCluster("v5p", num_pods=2), make_policy(args.policy, **pol_kwargs),
+        jobs(2), net=net_model,
+    ).run()
+
+    rand = [results[k] for k in results if k.startswith("gpu-random-s")]
+    # how many gangs spanned pods in the 2-pod replay: with none, the
+    # 2-pod/1-pod JCT ratio says nothing about DCN (only doubled
+    # capacity), so the ratio is reported with its multislice count and
+    # nulled when no gang crossed a pod
+    pod_chips = configs["tpu-v5p-2pod"].pod_chips
+    n_multislice = sum(1 for j in jobs(2) if j.num_chips > pod_chips)
+    extra = {
+        "acceptance": acceptance_band(results["gpu-consolidated"], results["tpu-v5p"]),
+        "gpu-random-mean": {
+            "avg_jct": mean(r.avg_jct for r in rand),
+            "makespan": mean(r.makespan for r in rand),
+            "seeds": len(rand),
+        },
+        "dcn_vs_ici": {
+            "multislice_jobs": n_multislice,
+            "jct_ratio_2pod_over_1pod": (
+                results["tpu-v5p-2pod"].avg_jct / results["tpu-v5p"].avg_jct
+                if n_multislice else None
+            ),
+        },
+        "contention": {
+            "multislice_jobs": n_multislice,
+            "oversubscription": net_model.config.oversubscription,
+            "jct_ratio_net_over_static": (
+                results["tpu-v5p-2pod-net"].avg_jct
+                / results["tpu-v5p-2pod"].avg_jct
+                if n_multislice and results["tpu-v5p-2pod"].avg_jct > 0
+                else None
+            ),
+            "net_reprices": int(
+                results["tpu-v5p-2pod-net"].counters.get("net_reprices", 0)
+            ),
+            "mean_link_utilization": net_model.mean_utilization(),
+        },
+    }
+    if args.load_sweep:
+        # the acceptance band against offered load; the base-load point
+        # reuses the replays already computed above
+        from gpuschedule_tpu_torch.analysis import acceptance_load_sweep
+
+        extra["load_sweep"] = acceptance_load_sweep(
+            jobs,
+            lambda: gpu("consolidated"),
+            lambda: TpuCluster("v5p"),
+            lambda: make_policy(args.policy, **pol_kwargs),
+            base_results=(results["gpu-consolidated"], results["tpu-v5p"]),
+        )
+    out = {k: v.summary() for k, v in results.items()}
+    out.update(extra)
+    print(json.dumps(out, sort_keys=True))
+    if args.out:
+        write_report(results, args.out, extra=extra)
+    return 0
+
+
 def _add_world_args(p) -> None:
     """The JAX CLI's world-building flags that this package's modules
     serve (``gpuschedule_tpu/cli.py:_add_world_args``), with their
@@ -491,12 +699,19 @@ def _add_world_args(p) -> None:
     p.add_argument("--policy", choices=available(), default="fifo")
     p.add_argument("--policy-arg", action="append", metavar="K=V",
                    help="policy constructor kwarg (JSON values)")
-    p.add_argument("--cluster", default="tpu-v5e", choices=("simple", "tpu-v5e", "tpu-v5p"))
+    p.add_argument("--cluster", default="tpu-v5e",
+                   choices=("simple", "tpu-v5e", "tpu-v5p", "gpu"))
     p.add_argument("--chips", type=int, default=64, help="simple cluster size")
     p.add_argument("--dims", help="TPU pod dims, e.g. 16x16 / 8x8x4")
     p.add_argument("--pods", type=int, default=1)
-    p.add_argument("--placement", default="consolidated", choices=("consolidated",),
-                   help="slice placement: first-fit toward the origin corner")
+    p.add_argument("--gpu-shape", default="2x4x8",
+                   help="switches x nodes x gpus for --cluster gpu")
+    p.add_argument("--placement", default="consolidated",
+                   help="consolidated|random|greedy|topology (gpu) / "
+                        "consolidated|random|spread|contention|health "
+                        "(tpu; contention needs --net, health steers "
+                        "away from degraded/high-hazard chips)")
+    p.add_argument("--placement-seed", type=int, default=0)
     p.add_argument("--philly", help="Philly-schema trace CSV")
     p.add_argument("--trace", help="native-schema trace CSV")
     p.add_argument("--synthetic", type=int, metavar="N", help="generate N-job Poisson trace")
@@ -510,6 +725,46 @@ def _add_world_args(p) -> None:
     p.add_argument("--curves", help="goodput curve cache (optimus)")
     p.add_argument("--online", action="store_true",
                    help="profile unseen models live (optimus, with --curves), on --device")
+    p.add_argument("--faults", metavar="SPEC",
+                   help="inject hardware faults: k=v pairs, e.g. "
+                        "mtbf=86400,repair=3600,ckpt=1800 (keys: mtbf, "
+                        "repair, maintenance, maintenance_duration, spot, "
+                        "spot_mtbf, spot_outage, spot_warning (pre-revoke "
+                        "notice window: emergency checkpoints when it "
+                        "covers the write cost), domain_mtbf / "
+                        "domain_repair (correlated host/rack/pod "
+                        "outages), domain_host / domain_rack / "
+                        "domain_pod (per-level outage-rate multipliers), "
+                        "hazard_shape (Weibull shape; 1 = memoryless), "
+                        "hazard_util (wear-driven aging weight), "
+                        "migrate_threshold (proactive checkpoint-and-"
+                        "migrate trigger), straggler_mtbf / "
+                        "straggler_repair / "
+                        "straggler_degrade (slow chips pacing their "
+                        "gangs), link_mtbf / link_repair / link_degrade, "
+                        "ckpt, restore, ckpt_write (priced periodic "
+                        "checkpoint writes; 'auto' sizes from model "
+                        "state); seconds, inf ok, restore=auto derives "
+                        "cost from the model size).  The fault schedule "
+                        "derives from --seed via independent RNG "
+                        "streams, so trace and faults reproduce together")
+    p.add_argument("--net", nargs="?", const=True, default=None,
+                   metavar="SPEC",
+                   help="model the shared DCN fabric (net/): multislice "
+                        "jobs get max-min fair bandwidth shares instead "
+                        "of the static isolated-fabric speed factor, "
+                        "re-priced on every running-set change.  SPEC is "
+                        "k=v pairs: os (core oversubscription ratio, "
+                        "default 4), ingest (Gbps per occupied chip, "
+                        "default 0.05), uplinks (redundant sibling "
+                        "uplinks per pod, default 1; >1 arms adaptive "
+                        "routing around degraded links), partial "
+                        "(bottleneck-group partial re-solve with the "
+                        "hierarchical core tier, default 0).  TPU "
+                        "clusters only; enables the "
+                        "'contention' placement scheme's residual-"
+                        "bandwidth scoring and ('link', pod) fault "
+                        "degradation")
     p.add_argument("--accounting", choices=("v1",), default="v1",
                    help="progress-accounting version: v1, the chunk-per-batch "
                         "integration and its byte-identity contract")
@@ -560,6 +815,27 @@ def build_parser() -> argparse.ArgumentParser:
     gen.add_argument("--util-min", type=float, default=1.0)
     gen.add_argument("--out", required=True)
     gen.set_defaults(fn=cmd_gen_trace)
+
+    from gpuschedule_tpu_torch.policies import available
+
+    cmp_ = sub.add_parser("compare-topology",
+                          help="config #5: GPU placement schemes vs TPU slices")
+    cmp_.add_argument("--policy", choices=available(), default="fifo")
+    cmp_.add_argument("--policy-arg", action="append", metavar="K=V",
+                      help="policy constructor kwarg (JSON values), e.g. "
+                           "backfill=true")
+    cmp_.add_argument("--philly")
+    cmp_.add_argument("--synthetic", type=int)
+    cmp_.add_argument("--seed", type=int, default=0)
+    cmp_.add_argument("--gpu-shape", default="4x8x8")
+    cmp_.add_argument("--seeds", type=int, default=1,
+                      help="random-placement draws to average (config #5 "
+                           "seed sweep)")
+    cmp_.add_argument("--load-sweep", action="store_true",
+                      help="also sweep offered load (70/80/90/95%%) and "
+                           "report the acceptance band per load")
+    cmp_.add_argument("--out")
+    cmp_.set_defaults(fn=cmd_compare_topology)
 
     tr = sub.add_parser("train", help="train a model on a device mesh")
     tr.add_argument("--model", required=True)

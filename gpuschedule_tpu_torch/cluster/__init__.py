@@ -1,9 +1,11 @@
 """Cluster models (own copies of the JAX package's): TPU pods as ICI tori
 with contiguous slice allocation (``TpuCluster``), a flat counting pool
-(``SimpleCluster``), and the interconnect constants and slice table that the
-goodput curve synthesis reads.  The GPU node model waits for its slice."""
+(``SimpleCluster``), a GPU node model (``GpuCluster``: switch, node and
+GPU with NVLink locality) for the topology comparison, and the interconnect
+constants and slice table that the goodput curve synthesis reads."""
 
 from gpuschedule_tpu_torch.cluster.base import Allocation, ClusterBase, SimpleCluster
+from gpuschedule_tpu_torch.cluster.gpu import GpuCluster, GpuPlacement
 from gpuschedule_tpu_torch.cluster.tpu import (
     DCN_GBPS,
     GENERATIONS,
@@ -18,6 +20,8 @@ __all__ = [
     "Allocation",
     "ClusterBase",
     "SimpleCluster",
+    "GpuCluster",
+    "GpuPlacement",
     "TpuCluster",
     "SliceGeometry",
     "MultiSliceGeometry",

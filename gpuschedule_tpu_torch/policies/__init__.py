@@ -1,21 +1,24 @@
 """Scheduling policies (own copies of the JAX package's).
 
 Registry maps CLI names to policy factories; policies plug into the engine via
-the :class:`gpuschedule_tpu_torch.policies.base.Policy` interface.  Gandiva
-and Themis wait for their slice: until then their names are unknown here.
+the :class:`gpuschedule_tpu_torch.policies.base.Policy` interface.
 """
 
 from gpuschedule_tpu_torch.policies.base import Policy
 from gpuschedule_tpu_torch.policies.dlas import DlasPolicy
 from gpuschedule_tpu_torch.policies.fifo import FifoPolicy
+from gpuschedule_tpu_torch.policies.gandiva import GandivaPolicy
 from gpuschedule_tpu_torch.policies.optimus import OptimusPolicy
 from gpuschedule_tpu_torch.policies.srtf import SrtfPolicy
+from gpuschedule_tpu_torch.policies.themis import ThemisPolicy
 
 _REGISTRY = {
     "fifo": FifoPolicy,
     "srtf": SrtfPolicy,
     "dlas": DlasPolicy,
+    "gandiva": GandivaPolicy,
     "optimus": OptimusPolicy,
+    "themis": ThemisPolicy,
 }
 
 
@@ -40,7 +43,9 @@ __all__ = [
     "FifoPolicy",
     "SrtfPolicy",
     "DlasPolicy",
+    "GandivaPolicy",
     "OptimusPolicy",
+    "ThemisPolicy",
     "make_policy",
     "available",
     "register",

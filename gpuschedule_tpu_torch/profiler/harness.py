@@ -29,7 +29,7 @@ import time
 import warnings
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, List, NamedTuple, Optional, Sequence
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -145,7 +145,8 @@ class Window:
 
 def device_window(fn, calls: int = 1, *, want: Optional[str] = None, host: bool = False,
                   what: str = "device_window", windows: int = WINDOWS,
-                  check: bool = True, warm: bool = True) -> Window:
+                  check: bool = True, warm: bool = True,
+                  agree: Optional[Callable[[bool], bool]] = None) -> Window:
     """The records of one ``torch.profiler`` window of ``calls`` calls of
     ``fn`` on the card, after one call outside it (``warm=False``: none,
     for a caller that counts every call): the one window of the
@@ -159,7 +160,9 @@ def device_window(fn, calls: int = 1, *, want: Optional[str] = None, host: bool 
     ``windows`` windows; each lost one is printed to stderr on a line of
     its own (``what``, the window's number and the names it did see), and
     a run of ``windows`` lost windows raises :class:`LostWindow`.  Ranks that
-    step together pass ``windows=1``: a window taken again on one rank
+    step together pass ``agree``, which takes this rank's verdict on each
+    window and returns whether every rank kept its window (an all-reduce):
+    they take a window again together, since one taken again on one rank
     alone would call ``fn`` more often there than on the others.
     ``check=False`` returns the first window as it is (for its host
     records).  ``host`` records the host's activity too (the runtime calls
@@ -194,11 +197,15 @@ def device_window(fn, calls: int = 1, *, want: Optional[str] = None, host: bool 
             (device if evt.device_type == DeviceType.CUDA else cpu).append(rec)
         marked = any(MARKER in r.name and r.us >= MARKER_US for r in device)
         device = [r for r in device if MARKER not in r.name]
-        if not check or (marked and (want is None or any(want in r.name for r in device))):
+        if not check:
+            return Window(device, cpu, window, wall_ms)
+        kept = marked and (want is None or any(want in r.name for r in device))
+        if (kept if agree is None else agree(kept)):
             return Window(device, cpu, window, wall_ms)
         TALLY["lost"] += 1
+        lost = "its marker" if not marked else repr(want) if not kept else "another rank's"
         print(f"{what}: window {window + 1} of {windows} lost "
-              f"{'its marker' if not marked else repr(want)}: {calls} calls, device records "
+              f"{lost}: {calls} calls, device records "
               f"{sorted({r.name[:90] for r in device})}", file=sys.stderr, flush=True)
     raise LostWindow(f"{what}: {windows} profiler windows in a row lost their device records")
 

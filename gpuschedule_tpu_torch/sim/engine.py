@@ -19,13 +19,12 @@ Single-process, pure Python, no accelerator in the loop (SURVEY.md §3.1:
 "pure single-process CPU sim").
 
 What the port does not have yet refuses with a ``ValueError`` that names
-the missing module, at construction (``faults``: ``faults/``; ``net``:
-``net/``; ``accounting="v2"``: ``sim/ledger.py``; ``snapshot_every`` /
-``snapshot_path``: ``sim/snapshot.py``) or at the call (:meth:`snapshot`,
-:meth:`restore`, :meth:`fork`, :meth:`inject_drain`).  The branches those
-objects would drive are carried over as they are, unreachable until their
-module is ported, so that a replay without them is the JAX package's
-replay, step for step.
+the missing module, at construction (``accounting="v2"``:
+``sim/ledger.py``; ``snapshot_every`` / ``snapshot_path``:
+``sim/snapshot.py``) or at the call (:meth:`snapshot`, :meth:`restore`,
+:meth:`fork`).  The branches those objects would drive are carried over as
+they are, unreachable until their module is ported, so that a replay
+without them is the JAX package's replay, step for step.
 """
 
 from __future__ import annotations
@@ -146,10 +145,6 @@ class Simulator:
             )
         if accounting == "v2":
             raise _not_ported("accounting='v2'", "sim/ledger.py")
-        if faults is not None:
-            raise _not_ported("fault injection (faults=)", "faults/")
-        if net is not None:
-            raise _not_ported("the shared-fabric model (net=)", "net/")
         self.accounting = accounting
         self._lazy = False
         self._ledger = None
@@ -202,6 +197,12 @@ class Simulator:
         # no per-batch observe call, no behavior change.
         self.hazard = None
         self._migrate_threshold = math.inf
+        if faults is not None and getattr(faults, "hazard", None) is not None:
+            from gpuschedule_tpu_torch.faults.hazard import HazardModel
+
+            self.hazard = HazardModel(faults.hazard, cluster)
+            cluster.bind_hazard(self.hazard)
+            self._migrate_threshold = faults.hazard.migrate_threshold
         # Stable sort: ties on submit_time keep trace order, and each job gets
         # a numeric arrival sequence so policies can tie-break without relying
         # on string job_id ordering (which misorders 'j2' vs 'j10').
@@ -1923,7 +1924,26 @@ class Simulator:
         one is armed when the run had no fault plan), capacity returns
         at the repair.  Answers "drain pod 7 now or at the maintenance
         window?" by forked replay of both variants."""
-        raise _not_ported("inject_drain", "faults/ and sim/whatif.py")
+        at = self.now if t is None else float(t)
+        if at < self.now:
+            raise ValueError(
+                f"inject_drain at {at} is in the past (now={self.now})"
+            )
+        from gpuschedule_tpu_torch.faults.recovery import FaultPlan
+        from gpuschedule_tpu_torch.faults.schedule import FaultRecord
+
+        rec = FaultRecord(at, tuple(scope), float(duration), "maintenance")
+        if self.faults is None:
+            self.faults = FaultPlan(records=[rec])
+        else:
+            self.faults.records.append(rec)
+        # registered like a scheduled record: snapshot/fork remap the
+        # id()-keyed index through the records list, injected or not
+        self._fault_ids[id(rec)] = len(self.faults.records) - 1
+        self._drain_faults = True
+        self._whatif_pending += 1
+        self._push(at, _WHATIF, ("fault", rec))
+        return rec
 
     def swap_policy(self, policy) -> None:
         """Replace the scheduling policy mid-replay — the "what if we

@@ -80,7 +80,8 @@ def test_bench_has_no_cpu_fallback(no_cuda, capsys):
 
 def test_scans_cover_the_bench_and_the_card_table():
     """The import scans below cover these files, the data, checkpoint and
-    tracer modules among them, and the simulator's modules."""
+    tracer modules among them, and the simulator's modules: its topology,
+    fabric and fault modules too."""
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     assert {"gpuschedule_tpu_torch/bench.py", "gpuschedule_tpu_torch/cluster/cards.py",
             "gpuschedule_tpu_torch/models/cnn.py", "gpuschedule_tpu_torch/data/loader.py",
@@ -90,7 +91,10 @@ def test_scans_cover_the_bench_and_the_card_table():
         "sim/__init__", "sim/job", "sim/jobset", "sim/trace", "sim/philly", "sim/metrics",
         "sim/overhead", "sim/engine", "obs/metrics", "obs/perfetto", "cluster/base",
         "cluster/tpu", "policies/__init__", "policies/base", "policies/preemptive",
-        "policies/fifo", "policies/srtf", "policies/dlas", "policies/optimus")}
+        "policies/fifo", "policies/srtf", "policies/dlas", "policies/optimus",
+        "policies/gandiva", "policies/themis", "cluster/gpu", "placement/__init__",
+        "placement/schemes", "net/__init__", "net/fabric", "net/maxmin", "net/model",
+        "faults/__init__", "faults/schedule", "faults/hazard", "faults/recovery", "analysis")}
     assert sim <= names
 
 

@@ -219,14 +219,7 @@ def test_run_until_then_run_and_what_if_mutations_equal_jax(world):
     assert out[0] == out[1] and out[1]["arrivals"] == 201
 
 
-class _Stub:
-    records = ()
-    recovery = None
-
-
 @pytest.mark.parametrize("kw,module", [
-    ({"faults": _Stub()}, "faults/"),
-    ({"net": object()}, "net/"),
     ({"accounting": "v2"}, "sim/ledger.py"),
     ({"snapshot_every": 60.0, "snapshot_path": "snap.pkl"}, "sim/snapshot.py"),
 ])
@@ -239,8 +232,7 @@ def test_unported_engine_calls_refuse(tmp_path):
     sim = Simulator(SimpleCluster(8), make_policy("fifo"), trace.generate_poisson_trace(5))
     for call, module in ((lambda: sim.snapshot(tmp_path / "s"), "sim/snapshot.py"),
                          (lambda: Simulator.restore(tmp_path / "s"), "sim/snapshot.py"),
-                         (lambda: sim.fork(), "sim/snapshot.py"),
-                         (lambda: sim.inject_drain(("pod", 0)), "faults/ and sim/whatif.py")):
+                         (lambda: sim.fork(), "sim/snapshot.py")):
         with pytest.raises(ValueError, match=f"needs {module}"):
             call()
     assert not list(tmp_path.iterdir())
@@ -251,10 +243,11 @@ def test_unported_engine_calls_refuse(tmp_path):
         Simulator(SimpleCluster(8), make_policy("fifo"), [], snapshot_path="s")
 
 
-@pytest.mark.parametrize("name", ["gandiva", "themis", "no-such-policy"])
+@pytest.mark.parametrize("name", ["no-such-policy"])
 def test_policies_of_later_slices_are_unknown(name):
     with pytest.raises(ValueError, match=f"unknown policy {name!r}; known: "
-                                         r"\['dlas', 'fifo', 'optimus', 'srtf'\]"):
+                                         r"\['dlas', 'fifo', 'gandiva', 'optimus', 'srtf', "
+                                         r"'themis'\]"):
         make_policy(name)
 
 

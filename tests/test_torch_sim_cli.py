@@ -5,9 +5,11 @@ Each ``run`` goes through both packages' CLIs (``main`` in this process)
 with the same flags: the summary line must be equal and every file under
 ``--out`` (and ``--prom``) byte-equal.  ``gen-trace`` writes byte-equal
 CSVs.  The flags whose modules the port has not yet are rejected by its
-parser.  Optimus online on the CPU (``device="cpu"``, transformer-tiny, a
-tiny batch) measures through the port's ``profile_model`` and writes a
-curve file from which both packages replay offline to equal summaries;
+parser (``tests/test_torch_topology.py`` and ``tests/test_torch_faults.py``
+run the flags of the topology and faults modules).  Optimus online on
+the CPU (``device="cpu"``, transformer-tiny, a tiny batch) measures
+through the port's ``profile_model`` and writes a curve file from which
+both packages replay offline to equal summaries;
 only a ``ValueError`` from the harness falls back to a curve, as in the
 JAX package, and any other failure fails the replay.
 """
@@ -16,6 +18,7 @@ import json
 from pathlib import Path
 
 import pytest
+from torch_sim_parity import OUTPUTS, PHILLY_SAMPLE, run_both
 
 from gpuschedule_tpu import cli as jax_cli
 from gpuschedule_tpu.policies.optimus import OptimusPolicy as JaxOptimus
@@ -27,24 +30,6 @@ from gpuschedule_tpu_torch.policies.optimus import DEFAULT_CURVE, OptimusPolicy
 from gpuschedule_tpu_torch.profiler import CurveCache, harness
 from gpuschedule_tpu_torch.sim import Simulator
 from gpuschedule_tpu_torch.sim.trace import generate_poisson_trace, save_trace_csv
-
-ROOT = Path(__file__).resolve().parents[1]
-PHILLY_SAMPLE = str(ROOT / "data" / "philly_sample.csv")
-OUTPUTS = ("jobs.csv", "utilization.csv", "counters.json", "metrics.prom", "metrics.json")
-
-
-def _run_both(capsys, tmp_path, argv, files=OUTPUTS):
-    """``run`` through the JAX CLI and the port's; returns the port's summary."""
-    lines = []
-    for side, main in (("jax", jax_cli.main), ("port", cli.main)):
-        out = tmp_path / side
-        extra = [a.replace("{out}", str(out)) for a in argv]
-        assert main(["run", *extra, "--out", str(out)]) == 0
-        lines.append(capsys.readouterr().out.strip().splitlines())
-    assert lines[0] == lines[1] and len(lines[1]) == 1
-    for name in files:
-        assert (tmp_path / "jax" / name).read_bytes() == (tmp_path / "port" / name).read_bytes(), name
-    return json.loads(lines[1][0])
 
 
 @pytest.fixture(scope="module")
@@ -65,15 +50,15 @@ def curves(tmp_path_factory):
 
 @pytest.mark.parametrize("policy", ["fifo", "srtf", "dlas", "optimus"])
 def test_run_synthetic_on_simple(policy, curves, capsys, tmp_path):
-    got = _run_both(capsys, tmp_path, ["--policy", policy, "--cluster", "simple", "--chips", "64",
-                                       "--synthetic", "200", "--seed", "42", "--curves", curves])
+    got = run_both(capsys, tmp_path, ["--policy", policy, "--cluster", "simple", "--chips", "64",
+                                      "--synthetic", "200", "--seed", "42", "--curves", curves])
     assert got["num_finished"] == got["arrivals"] == 200.0
 
 
 def test_run_philly_sample_with_observability(capsys, tmp_path):
     """Attribution, periodic and on-change samples, cache telemetry and a
     prefix on a v5e 8x8 pod under DLAS with its automatic restart cost."""
-    got = _run_both(capsys, tmp_path, [
+    got = run_both(capsys, tmp_path, [
         "--policy", "dlas", "--policy-arg", "restart_overhead=auto", "--cluster", "tpu-v5e",
         "--dims", "8x8", "--philly", PHILLY_SAMPLE, "--attrib", "--sample-interval", "600",
         "--sample-on-change", "--cache-stats", "--prefix", "x_"],
@@ -92,7 +77,7 @@ def test_run_gen_trace_on_multislice_v5p(curves, capsys, tmp_path):
                      "--out", str(paths[side])]) == 0
     assert capsys.readouterr().out.count("wrote 300 jobs") == 2
     assert paths["jax"].read_bytes() == paths["port"].read_bytes()
-    got = _run_both(capsys, tmp_path, [
+    got = run_both(capsys, tmp_path, [
         "--policy", "optimus", "--curves", curves, "--cluster", "tpu-v5p", "--pods", "2",
         "--trace", str(paths["port"]), "--max-time", "4000", "--prom", "{out}.prom"])
     assert got["num_unfinished"] > 0
@@ -128,11 +113,9 @@ def test_spans_record_the_engine_loop(capsys, tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--net"], ["--faults", "mtbf=3600"], ["--placement", "random"], ["--cluster", "gpu"],
     ["--events"], ["--perfetto", "t.json"], ["--flush-events", "60"], ["--history", "h.db"],
     ["--snapshot", "s.pkl", "--snapshot-every", "60"], ["--resume", "s.pkl"],
-    ["--self-profile", "p.json"], ["--accounting", "v2"], ["--policy", "gandiva"],
-    ["--policy", "themis"], ["--gpu-shape", "2x4x8"],
+    ["--self-profile", "p.json"], ["--accounting", "v2"],
 ])
 def test_flags_of_later_slices_are_rejected(flag, capsys):
     with pytest.raises(SystemExit) as e:
@@ -182,7 +165,7 @@ def test_optimus_online_on_the_cpu(tiny_trace, capsys, tmp_path, monkeypatch):
     assert online["profiling_runs"] == 1.0 and online["num_finished"] == 60.0
     entry = json.loads(Path(curves).read_text())
     assert list(entry) == ["transformer-tiny"] and entry["transformer-tiny"]["points"]["1"] > 0
-    offline = _run_both(capsys, tmp_path, world)
+    offline = run_both(capsys, tmp_path, world)
     assert "profiling_runs" not in offline  # a warm cache pays no profiling charge
 
 

@@ -257,6 +257,31 @@ def test_device_window_takes_a_lost_window_again(monkeypatch, capsys):
     assert len(err) == 2 and all("lost its marker" in line for line in err)
 
 
+def test_device_window_retakes_with_the_other_ranks(monkeypatch, capsys):
+    """Ranks that step together take a window again together: ``agree``
+    gets this rank's verdict on every window and returns every rank's, so
+    a window kept here but lost on another rank is taken again here too;
+    a run of windows some rank lost raises."""
+    marker = ("spin_kernel", 20.0)
+    kept = [("fwd_mma_kernel", 100.0)]
+    _stand_in(monkeypatch, [[marker] + kept, kept, [marker] + kept])
+    seen, others = [], iter([False, True, True])
+
+    def agree(ok):
+        seen.append(ok)
+        return next(others) and ok
+
+    calls = []
+    win = device_window(lambda: calls.append(1), 1, what="test", warm=False, agree=agree)
+    assert seen == [True, False, True] and win.lost == 2 and len(calls) == 3
+    assert win.device == [Record(*r) for r in kept]
+    err = capsys.readouterr().err.splitlines()
+    assert "lost another rank's" in err[0] and "lost its marker" in err[1]
+    _stand_in(monkeypatch, [[marker] + kept] * harness.WINDOWS)
+    with pytest.raises(LostWindow, match=f"{harness.WINDOWS} profiler windows"):
+        device_window(lambda: None, 1, what="test", agree=lambda ok: False)
+
+
 def test_device_window_gives_up_after_its_windows(monkeypatch):
     _stand_in(monkeypatch, [[("fwd_mma_kernel", 1.0)]] * harness.WINDOWS)
     with pytest.raises(LostWindow, match=f"{harness.WINDOWS} profiler windows"):
