@@ -249,6 +249,20 @@ Phases, each fatal on failure (exit code 1, no result line):
    from the JAX package's runs: this script cannot import it); each
    command's wall seconds beside the host CPU, the card's name and power
    limit.  A ``{"topology": ...}`` line;
+22. the event stream and resume (``events_phase``): ``run`` over
+   ``data/philly_10k.csv`` on the v5p pod, four processes at once: DLAS
+   with ``--events --attrib --perfetto --self-profile --history``, FIFO
+   with ``--events --history`` into a store of its own (the two end in
+   either order), DLAS with ``--accounting v2``, DLAS with
+   ``--snapshot``s every 100,000 sim seconds; then the last snapshot
+   resumed in a fresh process onto the stream with a crashed tail, beside
+   ``report`` (in memory, ``--low-mem``, ``--selfprof``), ``compare`` and
+   ``obs export``; then ``history trend`` and ``list``.  Every line, exit
+   code and file (sha256) the JAX package's (EVENTS_* pins), the
+   self-profile's phases and batches, the resumed run's files the
+   uninterrupted run's bytes, and no process with a CUDA context; each
+   command's wall seconds beside the host CPU, the card's name and power
+   limit.  An ``{"events": ...}`` line;
 14. a ``{"train": ...}`` line, a ``{"kernels": [...]}`` line (the five
    kernels and the three f32 forms; K1-K3 with their launches on the MoE +
    flash path, phase 13's path and phases 15's and 16's flash cells too,
@@ -534,6 +548,127 @@ TOPOLOGY_PINS = {
         '0, "repairs": 4755.0}'
     ),
 }
+# phase 22: the event stream and resume; "{tmp}" is the phase's temporary directory
+EVENTS_WORLD = ("--cluster", "tpu-v5p", "--philly", SIM_PHILLY)
+EVENTS_SNAPSHOT_EVERY = "100000"  # sim seconds: 16 snapshots in the DLAS replay's 1.69e6 s
+EVENTS_REPLAYS = {
+    "dlas": ("run", "--policy", "dlas", *EVENTS_WORLD, "--events", "--attrib",
+             "--perfetto", "{tmp}/dlas.trace.json", "--self-profile", "{tmp}/dlas.prof.json",
+             "--history", "{tmp}/h.db", "--out", "{tmp}/dlas"),
+    # a store of its own: DLAS's runs at the same time, and the rows of a
+    # shared store would fall in the order the two processes end
+    "fifo": ("run", "--policy", "fifo", *EVENTS_WORLD, "--events", "--history",
+             "{tmp}/h_fifo.db", "--out", "{tmp}/fifo"),
+    "v2": ("run", "--policy", "dlas", *EVENTS_WORLD, "--accounting", "v2", "--out", "{tmp}/v2"),
+    "snap": ("run", "--policy", "dlas", *EVENTS_WORLD, "--events", "--snapshot", "{tmp}/s.pkl",
+             "--snapshot-every", EVENTS_SNAPSHOT_EVERY, "--out", "{tmp}/snap"),
+}
+EVENTS_RESUME = ("run", "--resume", "{tmp}/s.pkl", "--events", "--out", "{tmp}/resumed")
+EVENTS_READERS = {
+    "report": ("report", "--events", "{tmp}/dlas/events.jsonl", "--json", "{tmp}/report.json",
+               "--out", "{tmp}/report.html"),
+    "report-low-mem": ("report", "--low-mem", "--events", "{tmp}/dlas/events.jsonl",
+                       "--json", "{tmp}/report_lm.json", "--out", "{tmp}/report_lm.html"),
+    "report-selfprof": ("report", "--events", "{tmp}/dlas/events.jsonl", "--selfprof",
+                        "{tmp}/dlas.prof.json", "--out", "{tmp}/report_sp.html"),
+    "compare": ("compare", "{tmp}/fifo/events.jsonl", "{tmp}/dlas/events.jsonl",
+                "--json", "{tmp}/compare.json", "--history", "{tmp}/h.db"),
+    "export": ("obs", "export", "--events", "{tmp}/dlas/events.jsonl",
+               "--out", "{tmp}/export.json"),
+}
+EVENTS_HISTORY = {
+    "trend": ("history", "trend", "--store", "{tmp}/h.db", "--metric", "avg_jct"),
+    "list": ("history", "list", "--store", "{tmp}/h.db"),
+    "list-fifo": ("history", "list", "--store", "{tmp}/h_fifo.db"),
+}
+EVENTS_TIMEOUT_S = 400
+# A phase-22 process: the port's CLI, then whether it made a CUDA context
+# (it must not: the phase adds no process that shares the card).
+CLI_NO_CUDA = ("import sys, torch\n"
+               "from gpuschedule_tpu_torch.cli import main\n"
+               "rc = main(sys.argv[1:])\n"
+               "print(f'cuda_initialized={torch.cuda.is_initialized()}', file=sys.stderr)\n"
+               "sys.exit(rc)")
+# What the JAX package printed and wrote for the commands above, as
+# ``python -m gpuschedule_tpu.cli`` ran them on the CPU (sha256 of each
+# file; the in-memory and the --low-mem report JSON differ in the JAX
+# package itself, in the last digits of two means, so each has its pin);
+# tests/test_torch_obs.py recomputes EVENTS_HEADER from the JAX package.
+EVENTS_PINS = {
+    'dlas': (
+        '{"arrivals": 10000.0, "avg_jct": 8667.20738252103, "delay_admission_s": 65792.38588844'
+        '816, "delay_capacity_s": 55938.296780569355, "delay_policy_preempt_s": 39133293.184541'
+        '374, "delay_work_s": 47417049.95799994, "goodput_lost_chip_s": 0.0, "goodput_restart_o'
+        'verhead_chip_s": 0.0, "goodput_total_chip_s": 161978684.85000002, "goodput_useful_chip'
+        '_s": 161978684.85000002, "makespan": 1691376.2835997785, "max_slowdown": 47.8855294731'
+        '1512, "mean_utilization": 0.374091350239738, "num_done": 6897, "num_failed": 1191, "nu'
+        'm_finished": 10000, "num_killed": 1912, "num_rejected": 0, "num_unfinished": 0, "p95_q'
+        'ueueing_delay": 0.0, "p95_slowdown": 3.29962887226621, "preemptions": 40967.0}'
+    ),
+    'fifo': (
+        '{"arrivals": 10000.0, "avg_jct": 256368.40994519982, "goodput_lost_chip_s": 0.0, "good'
+        'put_restart_overhead_chip_s": 0.0, "goodput_total_chip_s": 161978684.84999996, "goodpu'
+        't_useful_chip_s": 161978684.84999996, "makespan": 1845874.9049999993, "max_slowdown": '
+        '20976.445866666632, "mean_utilization": 0.34278012880581077, "num_done": 6897, "num_fa'
+        'iled": 1191, "num_finished": 10000, "num_killed": 1912, "num_rejected": 0, "num_unfini'
+        'shed": 0, "p95_queueing_delay": 597916.654, "p95_slowdown": 5748.442396736725}'
+    ),
+    'v2': (
+        '{"arrivals": 10000.0, "avg_jct": 8667.20738252103, "goodput_lost_chip_s": 0.0, "goodpu'
+        't_restart_overhead_chip_s": 0.0, "goodput_total_chip_s": 161978684.85000002, "goodput_'
+        'useful_chip_s": 161978684.85000002, "makespan": 1691376.2835997785, "max_slowdown": 47'
+        '.88552947311512, "mean_utilization": 0.3740913502397377, "num_done": 6897, "num_failed'
+        '": 1191, "num_finished": 10000, "num_killed": 1912, "num_rejected": 0, "num_unfinished'
+        '": 0, "p95_queueing_delay": 0.0, "p95_slowdown": 3.29962887226621, "preemptions": 4096'
+        '7.0}'
+    ),
+    'snap': (
+        '{"arrivals": 10000.0, "avg_jct": 8667.20738252103, "goodput_lost_chip_s": 0.0, "goodpu'
+        't_restart_overhead_chip_s": 0.0, "goodput_total_chip_s": 161978684.85000002, "goodput_'
+        'useful_chip_s": 161978684.85000002, "makespan": 1691376.2835997785, "max_slowdown": 47'
+        '.88552947311512, "mean_utilization": 0.374091350239738, "num_done": 6897, "num_failed"'
+        ': 1191, "num_finished": 10000, "num_killed": 1912, "num_rejected": 0, "num_unfinished"'
+        ': 0, "p95_queueing_delay": 0.0, "p95_slowdown": 3.29962887226621, "preemptions": 40967'
+        '.0}'
+    ),
+}
+EVENTS_HEADER = ('{"schema": 1, "run_id": "dlas-s0-20551f6eb60e", "seed": 0, "policy": "dlas", '
+                 '"config_hash": "20551f6eb60e", "total_chips": 256}')
+EVENTS_SHA256 = {
+    'dlas/events.jsonl': '07707f268fc0e27352aa2595bd2aecdf8ed23fd8df7c51c89f55e6e03e958620',
+    'fifo/events.jsonl': 'c2cfb550c4e92a5a5513ef283905b3c7cbc65dfab5465c4e9b7b1c3a0e0b25ea',
+    'snap/events.jsonl': '8073052403c217e513b8eb4c18d34a16619088da35cc92b6fb92b9251538736f',
+    'dlas.trace.json': 'b961072ce99a9f3ddad90ca1058cdd776cbcce498708da97144f85b97dbdcd5e',
+    'report.html': '1327b4144c0429dc2d10e981007fbd33c68e86c0c163e4d745cfaea767765205',
+    'report.json': '5b51abbf21cbc54215b86b3af7998a5ec8140674ee4f7753ee530e4af13a3a41',
+    'report_lm.json': '7a70fdbc7843445d5cd486cbda2ce04d408e0048e5d709f19e7d5e5da003b828',
+    'compare.json': '0eaf8c8293b8b5590141422371181022c3f97d1a107aba3b4eee759be1bb797b',
+}
+EVENTS_REPORT = {'events': 111934, 'jobs': 10000, 'max_progress_drift': 1.5379980729880451e-12}
+EVENTS_PROFILE = {"batches": 71178,
+                  "phases": ("advance", "analytics", "event_apply", "fault_dispatch",
+                             "ledger_sync", "metrics_emit", "net_resolve", "other",
+                             "policy_schedule")}
+EVENTS_COMPARE_RC = 0
+EVENTS_TREND = (
+    'seq  kind     policy  label  run                   avg_jct  d%(avg_jct)\n---  ---'
+    '----  ------  -----  --------------------  -------  -----------\n1    run      dl'
+    'as    -      dlas-s0-20551f6eb60e  8667.21  -\n2    compare  fifo    -      fifo-'
+    's0-20551f6eb60e  256368   +2857.9\n3    compare  dlas    -      dlas-s0-20551f6eb'
+    '60e  8667.21  -96.6'
+)
+EVENTS_LIST = (
+    '{"config_hash": "20551f6eb60e", "kind": "run", "label": "", "policy": "dlas", "r'
+    'un_id": "dlas-s0-20551f6eb60e", "seed": 0, "seq": 1}\n{"config_hash": "20551f6eb6'
+    '0e", "kind": "compare", "label": "", "policy": "fifo", "run_id": "fifo-s0-20551f'
+    '6eb60e", "seed": 0, "seq": 2}\n{"config_hash": "20551f6eb60e", "kind": "compare",'
+    ' "label": "", "policy": "dlas", "run_id": "dlas-s0-20551f6eb60e", "seed": 0, "se'
+    'q": 3}'
+)
+EVENTS_LIST_FIFO = (
+    '{"config_hash": "20551f6eb60e", "kind": "run", "label": "", "policy": "fifo", "r'
+    'un_id": "fifo-s0-20551f6eb60e", "seed": 0, "seq": 1}'
+)
 ROOT = Path(__file__).resolve().parent
 
 
@@ -2614,11 +2749,12 @@ def host_cpu() -> str:
     return f"{name or 'model not reported'}, {platform.machine()}, {os.cpu_count()} CPUs"
 
 
-def cli_runs(argvs: dict, timeout: float = SIM_TIMEOUT_S) -> dict:
-    """``python -m gpuschedule_tpu_torch`` once for each of ``argvs`` (label
-    -> the command's arguments), all started together, one process each:
-    each one's stdout line (it must print exactly one), that line parsed,
-    and its wall seconds (interpreter start and imports included)."""
+def cli_procs(cmds: dict, timeout: float = SIM_TIMEOUT_S) -> dict:
+    """Each of ``cmds`` (label -> command line) in a process of its own,
+    all started together from the checkout's root: each one's exit code,
+    stdout, stderr and wall seconds (interpreter start and imports
+    included), timed to its own end; None for one that ran past
+    ``timeout`` (it is killed).  Every process has ended on return."""
     import threading
 
     procs, ended = {}, {}
@@ -2627,38 +2763,47 @@ def cli_runs(argvs: dict, timeout: float = SIM_TIMEOUT_S) -> dict:
         # each process's own end: a thread a process, so one that ends
         # early is not timed to the end of another
         try:
-            ended[label] = (*proc.communicate(timeout=timeout), time.perf_counter() - t0)
+            out, err = proc.communicate(timeout=timeout)
+            ended[label] = (proc.returncode, out, err, time.perf_counter() - t0)
         except subprocess.TimeoutExpired:
             proc.kill()
             proc.communicate()
 
-    for label, argv in argvs.items():
-        cmd = [sys.executable, "-m", "gpuschedule_tpu_torch", *argv]
-        procs[label] = (time.perf_counter(), subprocess.Popen(
-            cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-    waiters = [threading.Thread(target=wait, args=(label, t0, proc))
-               for label, (t0, proc) in procs.items()]
-    for t in waiters:
-        t.start()
-    found = {}
     try:
+        for label, cmd in cmds.items():
+            procs[label] = (time.perf_counter(), subprocess.Popen(
+                cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        waiters = [threading.Thread(target=wait, args=(label, t0, proc))
+                   for label, (t0, proc) in procs.items()]
+        for t in waiters:
+            t.start()
         for t in waiters:
             t.join()
-        for label, (_, proc) in procs.items():
-            check(label in ended, f"{argvs[label][0]} ({label}) ran past {timeout} s")
-            out, err, wall_s = ended[label]
-            lines = out.strip().splitlines()
-            for text in err.splitlines():
-                print(f"{argvs[label][0]} ({label}): {text}", file=sys.stderr)
-            check(proc.returncode == 0 and len(lines) == 1,
-                  f"{argvs[label][0]} ({label}) exited {proc.returncode}: "
-                  f"{err.strip()[-2000:]}")
-            found[label] = {"line": lines[0], "summary": json.loads(lines[0]), "wall_s": wall_s}
     finally:
         for _, proc in procs.values():
             if proc.poll() is None:
                 proc.kill()
                 proc.communicate()
+    return {label: ended.get(label) for label in cmds}
+
+
+def cli_runs(argvs: dict, timeout: float = SIM_TIMEOUT_S) -> dict:
+    """``python -m gpuschedule_tpu_torch`` once for each of ``argvs`` (label
+    -> the command's arguments), as :func:`cli_procs` starts them: each
+    one's stdout line (it must print exactly one and exit 0), that line
+    parsed, and its wall seconds."""
+    ended = cli_procs({label: [sys.executable, "-m", "gpuschedule_tpu_torch", *argv]
+                       for label, argv in argvs.items()}, timeout)
+    found = {}
+    for label, argv in argvs.items():
+        check(ended[label] is not None, f"{argv[0]} ({label}) ran past {timeout} s")
+        rc, out, err, wall_s = ended[label]
+        lines = out.strip().splitlines()
+        for text in err.splitlines():
+            print(f"{argv[0]} ({label}): {text}", file=sys.stderr)
+        check(rc == 0 and len(lines) == 1,
+              f"{argv[0]} ({label}) exited {rc}: {err.strip()[-2000:]}")
+        found[label] = {"line": lines[0], "summary": json.loads(lines[0]), "wall_s": wall_s}
     return found
 
 
@@ -2867,6 +3012,128 @@ def topology_phase(smi) -> dict:
     return found
 
 
+def events_phase(smi) -> dict:
+    """Phase 22: the event stream and resume, through the port's CLI on
+    ``data/philly_10k.csv`` on the default v5p pod.  Four replays at once,
+    one process each (``EVENTS_REPLAYS``): DLAS with ``--events --attrib
+    --perfetto --self-profile --history``, FIFO with ``--events
+    --history`` into a store of its own, DLAS under ``--accounting v2``, and DLAS with periodic
+    ``--snapshot``s.  Then, at once: the last snapshot resumed in a fresh
+    process (``EVENTS_RESUME``) onto a copy of the snapshotted run's stream
+    with a crashed run's garbage tail, and the stream's readers
+    (``EVENTS_READERS``: ``report`` in memory, ``--low-mem`` and
+    ``--selfprof``, ``compare``, ``obs export``); then ``history trend``
+    and ``list`` of each store.  Each line, exit code and file must be the JAX
+    package's (``EVENTS_*`` pins; the self-profile by its phases and
+    batches), the resumed run's files the uninterrupted run's bytes, and
+    no process may make a CUDA context (``CLI_NO_CUDA``)."""
+    import hashlib
+
+    t_phase = time.perf_counter()
+    cpu = host_cpu()
+    found = {"card": smi, "host_cpu": cpu, "wall_s": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        def run_stage(cmds):
+            argvs = {label: [a.replace("{tmp}", tmp) for a in argv]
+                     for label, argv in cmds.items()}
+            ended = cli_procs({label: [sys.executable, "-c", CLI_NO_CUDA, *argv]
+                               for label, argv in argvs.items()}, EVENTS_TIMEOUT_S)
+            res = {}
+            for label, argv in cmds.items():
+                check(ended[label] is not None, f"{argv[0]} ({label}) ran past "
+                                                f"{EVENTS_TIMEOUT_S} s")
+                rc, out, err, wall_s = ended[label]
+                err_lines = err.strip().splitlines()
+                check(bool(err_lines) and err_lines[-1] == "cuda_initialized=False",
+                      f"{argv[0]} ({label}) exited {rc} or made a CUDA context: "
+                      f"{err.strip()[-2000:]}")
+                found["wall_s"][label] = wall_s
+                log(f"phase 22 {label}: python -m gpuschedule_tpu_torch {' '.join(argv)}: "
+                    f"{wall_s:.3f} s wall ({len(cmds)} commands at once, one process each) "
+                    f"on host {cpu}; card {smi}")
+                res[label] = {"rc": rc, "out": out.strip(), "err": err_lines[:-1]}
+            return res
+
+        def sha(name):
+            return hashlib.sha256(Path(tmp, name).read_bytes()).hexdigest()
+
+        # 1-4: the replays
+        replays = run_stage(EVENTS_REPLAYS)
+        for label, rep in replays.items():
+            check(rep["rc"] == 0 and rep["out"] == EVENTS_PINS[label],
+                  f"{label}: exit {rep['rc']}; the port's line is not the JAX package's:\n"
+                  f"port {rep['out']}\nJAX  {EVENTS_PINS[label]}")
+        for name in ("dlas/events.jsonl", "fifo/events.jsonl", "snap/events.jsonl",
+                     "dlas.trace.json"):
+            check(sha(name) == EVENTS_SHA256[name], f"{name} is not the JAX package's file")
+        with open(os.path.join(tmp, "dlas", "events.jsonl")) as f:
+            check(f.readline().strip() == EVENTS_HEADER, "the DLAS stream's header is not "
+                                                         "the JAX package's")
+        with open(os.path.join(tmp, "dlas.prof.json")) as f:
+            prof = json.load(f)["selfprof"]
+        check(prof["batches"] == EVENTS_PROFILE["batches"]
+              and tuple(prof["phases"]) == EVENTS_PROFILE["phases"],
+              f"the self-profile has {prof['batches']} batches and phases "
+              f"{list(prof['phases'])}, not the JAX run's {EVENTS_PROFILE}")
+        phase_sum = sum(v["total_s"] for v in prof["phases"].values())
+        check(abs(phase_sum - prof["total_wall_s"]) <= 1e-9 * prof["total_wall_s"],
+              f"the profile's phases sum to {phase_sum}, not {prof['total_wall_s']}")
+        with open(os.path.join(tmp, "s.pkl.meta.json")) as f:
+            snapshots = json.load(f)["snapshot_writes"]
+        check(snapshots >= 3, f"{snapshots} snapshots over the replay, fewer than 3")
+
+        # 5: the resume, and the stream's readers
+        os.makedirs(os.path.join(tmp, "resumed"))
+        shutil.copy(os.path.join(tmp, "snap", "events.jsonl"),
+                    os.path.join(tmp, "resumed", "events.jsonl"))
+        with open(os.path.join(tmp, "resumed", "events.jsonl"), "a") as f:
+            f.write('{"event": "garbage-from-crashed-tail')
+        readers = run_stage({"resume": EVENTS_RESUME, **EVENTS_READERS})
+        check(readers["resume"]["rc"] == 0 and readers["resume"]["out"] == EVENTS_PINS["snap"],
+              f"the resumed run: exit {readers['resume']['rc']}, line "
+              f"{readers['resume']['out']}")
+        for name in ("events.jsonl", "jobs.csv", "utilization.csv", "counters.json"):
+            check(sha(f"resumed/{name}") == sha(f"snap/{name}"),
+                  f"the resumed run's {name} is not the uninterrupted run's")
+        for label in ("report", "report-low-mem", "report-selfprof"):
+            rep = readers[label]
+            check(rep["rc"] == 0, f"{label} exited {rep['rc']}: {rep['err'][-5:]}")
+            line = json.loads(rep["out"])
+            line.pop("report")
+            check(line == EVENTS_REPORT, f"{label}: {line}, not {EVENTS_REPORT}")
+        check(sha("report.html") == sha("report_lm.html") == EVENTS_SHA256["report.html"],
+              "the report's HTML in memory and --low-mem are not both the JAX package's")
+        for name in ("report.json", "report_lm.json", "compare.json"):
+            check(sha(name) == EVENTS_SHA256[name], f"{name} is not the JAX package's file")
+        html = Path(tmp, "report_sp.html").read_text()
+        check("Engine health" in html and "event_apply" in html,
+              "report --selfprof has no Engine-health phase panel")
+        check(readers["compare"]["rc"] == EVENTS_COMPARE_RC,
+              f"compare exited {readers['compare']['rc']}, the JAX package "
+              f"{EVENTS_COMPARE_RC}")
+        check(readers["export"]["rc"] == 0 and sha("export.json") == sha("dlas.trace.json"),
+              "obs export of the DLAS stream is not run --perfetto's file")
+
+        # the history the runs and the compare appended: DLAS's run, then
+        # the compare's two rows; FIFO's run in its own store
+        history = run_stage(EVENTS_HISTORY)
+        check(history["trend"]["rc"] == 0 and history["trend"]["out"] == EVENTS_TREND,
+              f"history trend:\n{history['trend']['out']}\nnot the JAX package's\n"
+              f"{EVENTS_TREND}")
+        for label, pin in (("list", EVENTS_LIST), ("list-fifo", EVENTS_LIST_FIFO)):
+            check(history[label]["rc"] == 0 and history[label]["out"] == pin,
+                  f"history {label}:\n{history[label]['out']}\nnot the JAX package's")
+    found.update(pins_equal=True, snapshots=snapshots, profile_batches=prof["batches"],
+                 profile_total_wall_s=prof["total_wall_s"],
+                 profile_shares={k: v["share"] for k, v in prof["phases"].items()},
+                 compare_rc=readers["compare"]["rc"], cuda_initialized=False,
+                 phase_s=time.perf_counter() - t_phase)
+    log(f"phase 22: every line and file the JAX package's; the resumed run's files the "
+        f"uninterrupted run's ({snapshots} snapshots); no process made a CUDA context; "
+        f"{found['phase_s']:.1f} s")
+    return found
+
+
 def entry_phase(torch) -> dict:
     """Phase 18: ``entry()`` on the card, its logits held to the one-rank
     model's from the same seed on the same tokens (within FWD_TOL)."""
@@ -3011,6 +3278,15 @@ def tools_phase(torch, smi) -> dict:
 
 
 def run() -> dict:
+    # each phase's wall seconds, in the order the phases run (the
+    # ``{"train": ...}`` line's ``phase_wall_s``)
+    walls, t_lap = {}, [time.perf_counter()]
+
+    def lap(label):
+        now = time.perf_counter()
+        walls[label] = now - t_lap[0]
+        t_lap[0] = now
+
     import torch
 
     if not torch.cuda.is_available():
@@ -3048,6 +3324,7 @@ def run() -> dict:
     peaks = CARDS[card]
     dev = torch.device("cuda")
 
+    lap("1")
     # ---------------------------------------------------------------- 2 --
     t0 = time.perf_counter()
     fa._kernels()  # builds every csrc/*.cu, one nvcc each, in parallel
@@ -3113,6 +3390,7 @@ def run() -> dict:
         check((build_report[f"probe_xtx_kernel<{PROBE_BLOCK}>"]["hmma"] or 0) > 0,
               "probe_xtx_kernel has no HMMA in its SASS")
 
+    lap("2")
     # ---------------------------------------------------------------- 3 --
     errs = {name: 0.0 for name in KERNELS}
     parity = [  # bf16: the tensor-core kernels; f32: the FMA kernels
@@ -3165,6 +3443,7 @@ def run() -> dict:
     check(math.isfinite(losses[True]) and rel_loss < LOSS_RTOL,
           "flash and dense model losses disagree at init")
 
+    lap("3")
     # ---------------------------------------------------------------- 4 --
     b, s, h, d = MAIN_SHAPE
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -3229,6 +3508,7 @@ def run() -> dict:
         f"sdpa flash backward {sdpa_flash_bwd_ms:.4f} ms (dq, dk, dv in one call)")
     del q, k, v, g, qt, kt, vt, o_sdpa, out, lse, delta
 
+    lap("4")
     # ---------------------------------------------------------------- 5 --
     trainer = ShardedTrainer("transformer-long", batch_size=2, seq_len=4096, flash_attn=True)
     state = trainer.init(seed=0)
@@ -3296,6 +3576,7 @@ def run() -> dict:
     del state, trainer, tokens
     torch.cuda.empty_cache()
 
+    lap("5")
     # ---------------------------------------------------------------- 6 --
     before = dict(fa.LAUNCHES)
     trainer = ShardedTrainer("transformer-large", batch_size=16, seq_len=512)
@@ -3320,12 +3601,14 @@ def run() -> dict:
     del state, trainer, tokens
     torch.cuda.empty_cache()
 
+    lap("6")
     # ------------------------------------------------------------ 7 - 9 --
     probe_errs = probe_parity(torch, dev, (64, PROBE_N, 37, stages + 1))
     probe_launches, probe_times, probe_bounds = probe_sweeps(torch, dev, PROBE_N, ms, peaks)
     profile = profile_phase(torch, smi, dense_s)
     print(json.dumps({"profile": profile}))
 
+    lap("7-9")
     # --------------------------------------------------------------- 10 --
     bench = bench_phase(torch)
     print(json.dumps({"bench": bench}))
@@ -3336,6 +3619,7 @@ def run() -> dict:
     bench_launches = {name: bench["flash"]["launches"][name] + bench["longctx"]["launches"][name]
                       for name in KERNELS}
 
+    lap("10")
     # --------------------------------------------------------------- 11 --
     forms = f32_forms(torch, fa, dev, ms, peaks, F)
     ring = {"card": smi, "f32_forms": forms, "ring_flash": ring_vs_flash(torch, fa, dev, ms),
@@ -3343,16 +3627,19 @@ def run() -> dict:
             "cli": ring_cli()}
     print(json.dumps({"ring": ring}))
 
+    lap("11")
     # --------------------------------------------------------------- 12 --
     zoo = zoo_phase(torch, fa, ms, smi, peaks, profile)
     for name, e in zoo["moe_flash"]["parity"]["abs"].items():
         errs[name] = max(errs[name], e)
     print(json.dumps({"zoo": zoo}))
 
+    lap("12")
     # --------------------------------------------------------------- 13 --
     ckpt = ckpt_phase(torch, fa, smi, step_s)
     print(json.dumps({"ckpt": ckpt}))
 
+    lap("13")
     # --------------------------------------------------------------- 15 --
     first_losses = {"transformer-long": losses[0], "transformer-large": dense_losses[0],
                     "transformer-moe": zoo["cells"]["transformer-moe"]["losses"][0]}
@@ -3361,6 +3648,7 @@ def run() -> dict:
     tp = tp_phase(smi, first_losses, tp_kernels, found)
     print(json.dumps({"tp": tp}))
 
+    lap("15")
     # --------------------------------------------------------------- 16 --
     pp = pp_phase(smi, first_losses, pp_kernels, found)
     pp.update(ranks_s=ranks_s, phases_s=time.perf_counter() - t0)
@@ -3370,22 +3658,32 @@ def run() -> dict:
         errs[name] = max(errs[name], tp["kernels"][name]["max_abs_err"],
                          pp["kernels"][name]["max_abs_err"])
 
+    lap("16")
     # ----------------------------------------------------------- 17, 18 --
     print(json.dumps({"nccl": nccl_phase(torch, smi)}))
     print(json.dumps({"entry": entry_phase(torch)}))
 
+    lap("17,18")
     # --------------------------------------------------------------- 19 --
     tools = tools_phase(torch, smi)
     print(json.dumps({"tools": tools}))
     for name in KERNELS:
         errs[name] = max(errs[name], tools["kernels"][name]["max_abs_err"])
 
+    lap("19")
     # --------------------------------------------------------------- 20 --
     print(json.dumps({"sim": sim_phase(torch, fa, smi)}))
 
+    lap("20")
     # --------------------------------------------------------------- 21 --
     print(json.dumps({"topology": topology_phase(smi)}))
 
+    lap("21")
+    # --------------------------------------------------------------- 22 --
+    print(json.dumps({"events": events_phase(smi)}))
+
+    lap("22")
+    log(f"phase wall seconds: {json.dumps(walls)}")
     # --------------------------------------------------------------- 14 --
     train = {
         "card": smi, "build_s": build_s,
@@ -3400,7 +3698,7 @@ def run() -> dict:
                   "profile": dense_prof},
         "longctx": {"model": "transformer-xlong", "batch": 1, "seq": LONGCTX_SHAPE[1],
                     "profile": longctx_prof},
-        "build": build_report, "device_ms_per_launch": device_ms,
+        "build": build_report, "device_ms_per_launch": device_ms, "phase_wall_s": walls,
         "backward": {"ms": bwd_ms, "bound_ms": bwd_bound,
                      "plain_ms": times["flash_bwd_dq"][1] + times["flash_bwd_dkdv"][1],
                      "library_ms": sdpa_bwd_ms, "sdpa_flash_backward_ms": sdpa_flash_bwd_ms},

@@ -1,4 +1,5 @@
-"""Command line: ``python -m gpuschedule_tpu_torch {run,gen-trace,compare-topology,train,profile} ...``.
+"""Command line: ``python -m gpuschedule_tpu_torch
+{run,gen-trace,report,compare,history,compare-topology,train,obs,profile} ...``.
 
 Counterparts of the JAX package's subcommands:
 
@@ -13,12 +14,20 @@ Counterparts of the JAX package's subcommands:
   (``--faults SPEC``) if asked, prints the summary as one JSON line and
   writes ``jobs.csv``, ``utilization.csv``, ``counters.json``,
   ``metrics.prom`` and ``metrics.json`` under ``--out``, as the JAX CLI
-  does, to the byte.  ``--prom``, ``--spans``, ``--sample-interval``,
-  ``--sample-on-change``, ``--attrib``, ``--cache-stats`` and
-  ``--max-time`` mean what they mean there.  The flags whose modules the
-  port has not yet (``--events``, ``--perfetto``, ``--flush-events``,
-  ``--history``, ``--snapshot*``, ``--resume``, ``--self-profile``,
-  ``--accounting v2``) are not in its parser, which rejects them.
+  does, to the byte.  Every other flag of the JAX CLI's ``run`` means
+  what it means there: ``--prom``, ``--spans``, ``--sample-interval``,
+  ``--sample-on-change``, ``--attrib``, ``--cache-stats``, ``--max-time``;
+  ``--events [PATH]`` (the stream and its header, whose ``config_hash``
+  is the JAX CLI's for the same flags) with ``--flush-events``;
+  ``--perfetto``; ``--self-profile``; ``--history``; ``--snapshot`` with
+  ``--snapshot-every``, and ``--resume``, which finishes a snapshot of
+  this package's; ``--accounting v2``.  Their errors are the JAX CLI's.
+- ``report``, ``compare`` and ``history`` read what ``run`` wrote: one
+  stream's HTML report (``--json``, ``--low-mem``, ``--selfprof``,
+  ``--alerts``); the two-run regression gate (exit 0 within thresholds,
+  1 regressed, 2 not comparable) or the n-way matrix; the history
+  store's rows and trends.  ``obs export`` turns a stream into its
+  Perfetto trace.  Each writes the JAX CLI's bytes.
 - ``gen-trace`` writes a synthetic trace CSV (Poisson, or ``--philly-like``),
   the JAX CLI's file for the same flags, to the byte.
 - ``compare-topology`` replays one trace on GPU clusters under their
@@ -475,17 +484,161 @@ def build_policy(args):
     return make_policy(args.policy, **kwargs)
 
 
+def _run_config_hash(args) -> str:
+    """Digest of the *experiment* config — cluster + trace + fault spec,
+    deliberately not the policy — so `compare` accepts policy-A-vs-B runs
+    of the same seeded world and refuses cross-world diffs.  The flag ->
+    hash-key mapping lives in ONE table (``worldspec.py``), the JAX
+    package's, so a run's hash equals the JAX CLI's for the same flags."""
+    from gpuschedule_tpu_torch import worldspec
+    from gpuschedule_tpu_torch.obs import config_hash
+
+    return config_hash(worldspec.hash_config(args))
+
+
+def _append_run_history(store_path, run_meta, summary, *, policy, seed,
+                        fallback_hash) -> None:
+    """One history row for a finished replay, keyed by its run identity.
+    Shared by fresh and resumed runs so the row shape cannot drift
+    between the two paths."""
+    from gpuschedule_tpu_torch.obs import HistoryStore
+
+    chash = run_meta["config_hash"] if run_meta else fallback_hash
+    with HistoryStore(store_path) as store:
+        store.append(
+            "run",
+            run_id=(run_meta["run_id"] if run_meta
+                    else f"{policy}-s{seed}-{chash}"),
+            config_hash=chash,
+            policy=policy,
+            seed=seed,
+            metrics=summary,
+        )
+
+
+def _cmd_resume(args) -> int:
+    """``run --resume SNAPSHOT``: reconstruct a mid-replay engine from a
+    ``--snapshot`` file and finish it.  World-building flags (--philly /
+    --synthetic / --cluster / --faults / --net ...) are ignored — the
+    snapshot IS the world; output flags (--out / --events / --prefix),
+    --history / --cache-stats, and the snapshot/self-profile knobs still
+    apply.  --perfetto / --prom / --spans are refused (their collectors
+    are process-bound and cannot cover the pre-snapshot head).  Under v1
+    accounting the finished outputs are byte-identical to the
+    uninterrupted run (the obs registry / metrics.prom is process-bound
+    and counts only the tail — the one documented exception)."""
+    import math
+
+    from gpuschedule_tpu_torch.sim import Simulator
+    from gpuschedule_tpu_torch.sim.snapshot import SnapshotError
+
+    if args.events is True and not args.out:
+        raise SystemExit("--events without a PATH requires --out")
+    if bool(args.snapshot) != bool(args.snapshot_every):
+        raise SystemExit("--snapshot PATH and --snapshot-every SECONDS arm together")
+    if args.snapshot_every is not None and not (
+            math.isfinite(float(args.snapshot_every))
+            and float(args.snapshot_every) > 0.0):
+        # the fresh-run path gets this from the Simulator constructor;
+        # the resume re-arm pokes the fields directly, so check here
+        raise SystemExit(
+            f"--snapshot-every must be > 0 seconds, got {args.snapshot_every}"
+        )
+    for armed, name in ((args.perfetto, "--perfetto"), (args.prom, "--prom"),
+                        (args.spans, "--spans")):
+        if armed:
+            raise SystemExit(f"{name} is not supported with --resume")
+    events_sink = None
+    if isinstance(args.events, str):
+        events_sink = Path(args.events)
+    elif args.events:
+        events_sink = Path(args.out) / f"{args.prefix}events.jsonl"
+    profiler = None
+    if args.self_profile:
+        from gpuschedule_tpu_torch.obs import PhaseProfiler
+
+        profiler = PhaseProfiler()
+    try:
+        sim = Simulator.restore(
+            args.resume, events_sink=events_sink, profiler=profiler
+        )
+    except SnapshotError as e:
+        raise SystemExit(str(e)) from None
+    if args.snapshot and args.snapshot_every:
+        # re-arm (or move) periodic snapshotting for the resumed leg:
+        # next strict multiple of the cadence past the restored clock
+        every = float(args.snapshot_every)
+        sim._snap_path = Path(args.snapshot)
+        sim._snap_every = every
+        nxt = every * (math.floor(sim.now / every) + 1.0)
+        while nxt <= sim.now:  # float-rounding guard
+            nxt += every
+        sim._snap_next = nxt
+    if args.cache_stats:
+        # arm (or re-arm) cache telemetry for the resumed leg: restored
+        # caches start empty, so the counters cover exactly the tail —
+        # the same process-bound scope as the obs registry exception
+        sim.metrics.cache_telemetry = True
+        sim._cache_telemetry = True
+    if args.flush_events is not None:
+        # re-arm the tailable-sink flush cadence: the cadence is
+        # process-bound output plumbing (like the sink handle itself,
+        # deliberately not in the snapshot), so the resumed leg must
+        # re-request it — next strict multiple past the restored clock
+        if args.flush_events <= 0.0:
+            raise SystemExit(
+                f"--flush-events must be > 0 seconds, got {args.flush_events}"
+            )
+        fe = float(args.flush_events)
+        sim.metrics._flush_every = fe
+        nxt = fe * (math.floor(sim.now / fe) + 1.0)
+        while nxt <= sim.now:  # float-rounding guard
+            nxt += fe
+        sim.metrics._flush_next = nxt
+    with sim.metrics:
+        res = sim.run()
+    print(json.dumps(res.summary(), sort_keys=True))
+    if profiler is not None:
+        profiler.write(args.self_profile)
+    if args.history:
+        # the resumed leg appends its summary under the pickled run
+        # identity, as the uninterrupted run would have
+        rm = sim.metrics.run_meta
+        _append_run_history(
+            args.history, rm, res.summary(),
+            policy=(rm or {}).get("policy", args.policy),
+            seed=(rm or {}).get("seed", args.seed),
+            fallback_hash="resumed",
+        )
+    if args.out:
+        sim.metrics.write(args.out, prefix=args.prefix)
+    else:
+        sim.metrics.close_events()
+    return 0
+
+
 def cmd_run(args) -> int:
-    from gpuschedule_tpu_torch.obs import MetricsRegistry, get_tracer
     from gpuschedule_tpu_torch.sim import Simulator
     from gpuschedule_tpu_torch.sim.metrics import MetricsLog
+
+    if args.resume:
+        return _cmd_resume(args)
+    # --events PATH captures anywhere; bare --events writes events.jsonl
+    # under --out
+    if args.events is True and not args.out:
+        raise SystemExit("--events without a PATH requires --out")
+    from gpuschedule_tpu_torch.obs import get_tracer
 
     # --spans enables the tracer; GSTPU_TRACE=1 enables it at import.  Either
     # way an enabled tracer gets its spans reported below.
     if args.spans:
         get_tracer().enable().reset()
     tracer = get_tracer() if get_tracer().enabled else None
-    registry = MetricsRegistry() if args.out or args.prom else None
+    registry = None
+    if args.out or args.prom:
+        from gpuschedule_tpu_torch.obs import MetricsRegistry
+
+        registry = MetricsRegistry()
     net_model = build_net(args)
     if args.placement == "contention" and net_model is None:
         # without the net model every pod scores equally and the scheme
@@ -497,15 +650,54 @@ def cmd_run(args) -> int:
     cluster = build_cluster(args, net=net_model)
     jobs = load_jobs(args)
     fault_plan = build_fault_plan(args, cluster, jobs)
+    # With --events the stream goes straight to its JSONL sink (constant
+    # memory at Philly scale): to the given PATH, or events.jsonl under
+    # --out for the bare flag; --perfetto alone buffers events in RAM just
+    # long enough to convert them.
+    if isinstance(args.events, str):
+        events_sink = Path(args.events)
+    elif args.events:
+        events_sink = Path(args.out) / f"{args.prefix}events.jsonl"
+    else:
+        events_sink = None
+    # Stream identity header (obs/analyze.py): stamped whenever events are
+    # recorded so `report`/`compare` can verify what they are reading.
+    run_meta = None
+    if events_sink is not None or args.perfetto:
+        chash = _run_config_hash(args)
+        run_meta = {
+            "run_id": f"{args.policy}-s{args.seed}-{chash}",
+            "seed": args.seed, "policy": args.policy, "config_hash": chash,
+        }
     if args.sample_interval is not None and args.sample_interval <= 0.0:
         raise SystemExit(
             f"--sample-interval must be > 0 seconds, got {args.sample_interval}"
         )
+    if args.flush_events is not None and args.flush_events <= 0.0:
+        raise SystemExit(
+            f"--flush-events must be > 0 seconds, got {args.flush_events}"
+        )
+    # Attribution and sampling are observability, not experiment config:
+    # they are not in the config hash, so an attribution-armed capture
+    # stays `compare`-compatible with the plain run of the same world.
     metrics = MetricsLog(
+        record_events=bool(args.events) or bool(args.perfetto),
+        events_sink=events_sink,
         registry=registry,
+        run_meta=run_meta,
         attribution=bool(args.attrib),
         cache_telemetry=bool(args.cache_stats),
+        flush_interval_s=args.flush_events,
     )
+    # --self-profile attaches the phase profiler and selects the engine's
+    # profiled loop body; the flag off, no clock is ever read.
+    profiler = None
+    if args.self_profile:
+        from gpuschedule_tpu_torch.obs import PhaseProfiler
+
+        profiler = PhaseProfiler()
+    if bool(args.snapshot) != bool(args.snapshot_every):
+        raise SystemExit("--snapshot PATH and --snapshot-every SECONDS arm together")
     try:
         sim = Simulator(
             cluster, build_policy(args), jobs,
@@ -515,17 +707,51 @@ def cmd_run(args) -> int:
             net=net_model,
             sample_interval=args.sample_interval,
             sample_on_change=bool(args.sample_on_change),
+            profiler=profiler,
             accounting=args.accounting,
+            snapshot_every=args.snapshot_every,
+            snapshot_path=Path(args.snapshot) if args.snapshot else None,
         )
     except ValueError as e:
         raise SystemExit(str(e)) from None
+    # context-manager path: an engine exception still flushes/closes the
+    # JSONL sink, leaving an analyzable stream behind
     with metrics:
         res = sim.run()
     print(json.dumps(res.summary(), sort_keys=True))
+    if profiler is not None:
+        profiler.meta.update({
+            "seed": args.seed,
+            **({"run_id": run_meta["run_id"],
+                "config_hash": run_meta["config_hash"]}
+               if run_meta is not None else {}),
+        })
+        profiler.write(args.self_profile)
+        print(json.dumps(
+            {"selfprof": str(args.self_profile),
+             "total_wall_s": profiler.total_wall_s,
+             "batches": profiler.batches},
+            sort_keys=True), file=sys.stderr)
+    if args.history:
+        # append this invocation's summary keyed by run identity, so
+        # `history trend` can render the trajectory across invocations
+        _append_run_history(
+            args.history, run_meta, res.summary(),
+            policy=args.policy, seed=args.seed,
+            fallback_hash=(None if run_meta else _run_config_hash(args)),
+        )
     if args.out:
         sim.metrics.write(args.out, prefix=args.prefix)
     else:
         metrics.close_events()
+    if args.perfetto:
+        from gpuschedule_tpu_torch.obs import export_chrome_trace, load_events_jsonl
+
+        events = (
+            load_events_jsonl(events_sink) if events_sink is not None
+            else metrics.events
+        )
+        export_chrome_trace(events, args.perfetto)
     if registry is not None:
         if args.prom:
             registry.write(prom_path=args.prom)
@@ -538,6 +764,192 @@ def cmd_run(args) -> int:
         if args.out:
             tracer.write_chrome(Path(args.out) / f"{args.prefix}spans.trace.json")
         print(json.dumps({"spans": tracer.summary()}, sort_keys=True), file=sys.stderr)
+    return 0
+
+
+def cmd_obs_export(args) -> int:
+    """Convert a persisted events.jsonl into a ui.perfetto.dev-loadable
+    Chrome trace-event file (the offline half of `run --perfetto`)."""
+    from gpuschedule_tpu_torch.obs import export_chrome_trace, load_events_jsonl
+
+    doc = export_chrome_trace(load_events_jsonl(args.events), args.out)
+    print(json.dumps({
+        "trace": str(args.out),
+        "trace_events": len(doc["traceEvents"]),
+    }, sort_keys=True))
+    return 0
+
+
+def cmd_report(args) -> int:
+    """Render one run's events.jsonl as a self-contained HTML report
+    (inline CSS/SVG, zero network fetches) — the human half of the
+    analytics layer; `compare` is the CI half."""
+    from gpuschedule_tpu_torch.obs import SchemaError, StreamError, analyze_file, write_report
+
+    selfprof = None
+    if args.selfprof:
+        from gpuschedule_tpu_torch.obs import load_profile
+
+        try:
+            selfprof = load_profile(args.selfprof)
+        except (OSError, ValueError) as e:
+            raise SystemExit(str(e)) from None
+    alerts = None
+    if args.alerts:
+        # the watchtower's side stream: skip its header, keep the alert
+        # records — the report's Alerts panel input
+        from gpuschedule_tpu_torch.obs import iter_jsonl_records
+
+        try:
+            alerts = [
+                rec for rec in iter_jsonl_records(args.alerts)
+                if rec.get("event") == "alert"
+            ]
+        except StreamError as e:
+            raise SystemExit(str(e)) from None
+    try:
+        analysis = analyze_file(args.events, require_header=not args.no_header,
+                                low_memory=args.low_mem)
+    except (SchemaError, StreamError) as e:
+        raise SystemExit(str(e)) from None
+    out = write_report(analysis, args.out, title=args.title, selfprof=selfprof,
+                       alerts=alerts)
+    if args.json:
+        if args.low_mem:
+            # spill-backed JSON dump: stream the jobs array straight from
+            # the sqlite store, resident memory O(active); its means may
+            # differ from the in-memory document's in their last digits
+            # (ROADMAP.md Queue 3, as in the JAX package)
+            analysis.write_json(args.json)
+        else:
+            Path(args.json).write_text(
+                json.dumps(analysis.to_json(), indent=2, sort_keys=True)
+            )
+    print(json.dumps({
+        "report": str(out),
+        "events": analysis.num_events,
+        "jobs": len(analysis.jobs),
+        "max_progress_drift": analysis.max_progress_drift,
+    }, sort_keys=True))
+    return 0
+
+
+def cmd_compare(args) -> int:
+    """Regression-diff event streams for CI gating.
+
+    Two streams: the gate — exit 0 when B stays within threshold of A on
+    every gated metric, 1 past any threshold, 2 when the runs are not
+    comparable (missing or mismatched headers).  Three or more: the
+    n-way policy x metric matrix with per-metric best/worst highlighting
+    (exit 0, or 2 when any pair is not comparable; thresholds apply only
+    to the two-run gate)."""
+    from gpuschedule_tpu_torch.obs import (
+        SchemaError,
+        StreamError,
+        analyze_file,
+        compare_matrix,
+        compare_runs,
+        parse_thresholds,
+        write_compare_json,
+        write_matrix_json,
+    )
+
+    try:
+        default, per_metric = parse_thresholds(args.threshold)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
+    if len(args.streams) < 2:
+        # usage error, not a regression: exit 2 (the not-comparable
+        # bucket) so a CI glob matching one file doesn't read as exit-1
+        # "metric regressed"
+        print("compare needs at least two event streams", file=sys.stderr)
+        return 2
+    if len(args.streams) > 2 and args.threshold:
+        print(
+            "--threshold gates the two-run compare; the n-way matrix "
+            "ranks, it does not gate",
+            file=sys.stderr,
+        )
+        return 2
+    try:
+        analyses = [
+            analyze_file(path, low_memory=args.low_mem)
+            for path in args.streams
+        ]
+        if len(analyses) == 2:
+            result = compare_runs(
+                analyses[0], analyses[1],
+                threshold=default, per_metric=per_metric,
+                allow_mismatch=args.allow_mismatch,
+            )
+        else:
+            result = compare_matrix(
+                analyses, allow_mismatch=args.allow_mismatch
+            )
+    except (SchemaError, StreamError) as e:
+        print(f"refusing to compare: {e}", file=sys.stderr)
+        return 2
+    print(result.format_table())
+    if args.json:
+        if len(analyses) == 2:
+            write_compare_json(result, args.json)
+        else:
+            write_matrix_json(result, args.json)
+    if args.history:
+        # every compared stream's summary lands in the store under its
+        # own header identity, so repeated compare invocations
+        # accumulate per-config trajectories that `history trend` renders
+        from gpuschedule_tpu_torch.obs import HistoryStore
+
+        with HistoryStore(args.history) as store:
+            for a in analyses:
+                h = a.header
+                store.append(
+                    "compare",
+                    run_id=h.run_id if h else "",
+                    config_hash=h.config_hash if h else "",
+                    policy=h.policy if h else "",
+                    seed=h.seed if h else None,
+                    metrics=a.summary(),
+                )
+    return result.exit_code if len(analyses) == 2 else 0
+
+
+def cmd_history(args) -> int:
+    """Cross-run history: render the store's accumulated run/compare/bench
+    results.  ``trend`` prints a deterministic per-metric trajectory
+    table (same store -> same bytes, however many times it is invoked);
+    ``list`` prints the matching rows."""
+    from gpuschedule_tpu_torch.obs import HistoryStore, render_trend
+
+    if not Path(args.store).exists():
+        raise SystemExit(f"history store {args.store} does not exist")
+    with HistoryStore(args.store) as store:
+        rows = store.rows(
+            kind=args.kind, config_hash=args.config, label=args.label,
+            last=args.last,
+        )
+    if args.action == "list":
+        for r in rows:
+            print(json.dumps({
+                "seq": r.seq, "kind": r.kind, "run_id": r.run_id,
+                "config_hash": r.config_hash, "policy": r.policy,
+                "seed": r.seed, "label": r.label,
+            }, sort_keys=True))
+        print(f"{len(rows)} rows", file=sys.stderr)
+    else:
+        metrics = args.metric or ["avg_jct"]
+        print(render_trend(rows, metrics))
+    if args.json:
+        Path(args.json).write_text(json.dumps(
+            [{
+                "seq": r.seq, "ts": r.ts, "kind": r.kind,
+                "run_id": r.run_id, "config_hash": r.config_hash,
+                "policy": r.policy, "seed": r.seed, "label": r.label,
+                "metrics": r.metrics,
+            } for r in rows],
+            indent=2, sort_keys=True,
+        ))
     return 0
 
 
@@ -765,9 +1177,12 @@ def _add_world_args(p) -> None:
                         "'contention' placement scheme's residual-"
                         "bandwidth scoring and ('link', pod) fault "
                         "degradation")
-    p.add_argument("--accounting", choices=("v1",), default="v1",
-                   help="progress-accounting version: v1, the chunk-per-batch "
-                        "integration and its byte-identity contract")
+    p.add_argument("--accounting", choices=("v1", "v2"), default="v1",
+                   help="progress-accounting version: v1 (default) keeps the "
+                        "chunk-per-batch integration and its byte-identity "
+                        "contract; v2 integrates lazily / vectorized under an "
+                        "exact-sum closure contract instead.  v2 rides the "
+                        "config hash")
     p.add_argument("--device", default=None,
                    help="where --online profiles: 'cpu' for the plain PyTorch versions; "
                         "default: the card")
@@ -780,6 +1195,18 @@ def build_parser() -> argparse.ArgumentParser:
     _add_world_args(run)
     run.add_argument("--out", help="directory for jobs/utilization CSVs")
     run.add_argument("--prefix", default="")
+    run.add_argument("--events", nargs="?", const=True, default=None,
+                     metavar="PATH",
+                     help="record a structured events.jsonl stream (streamed "
+                          "incrementally, constant memory).  With PATH the "
+                          "stream goes there directly; the bare flag writes "
+                          "events.jsonl under --out.  The stream opens with "
+                          "a schema header (run_id/seed/policy/config_hash) "
+                          "for `report` and `compare`")
+    run.add_argument("--perfetto", metavar="PATH",
+                     help="export the replay as a Chrome/Perfetto trace "
+                          "(one track per pod/slice, one slice per job "
+                          "occupancy interval); implies event recording")
     run.add_argument("--spans", action="store_true",
                      help="enable the span tracer (engine batches + policy invocations); "
                           "writes spans.trace.json under --out and prints a span summary "
@@ -788,6 +1215,19 @@ def build_parser() -> argparse.ArgumentParser:
                      help="causal slowdown attribution: blame every queued interval with "
                           "its cause and split running time into legs; adds "
                           "delay_<cause>_s keys to the summary line")
+    run.add_argument("--snapshot", metavar="PATH",
+                     help="with --snapshot-every: serialize the full "
+                          "engine state here periodically, making the "
+                          "replay crash-resumable (run --resume PATH)")
+    run.add_argument("--snapshot-every", type=float, metavar="SECONDS",
+                     help="sim-seconds between engine snapshots (arms "
+                          "together with --snapshot)")
+    run.add_argument("--resume", metavar="SNAPSHOT",
+                     help="restore a mid-replay engine from a --snapshot "
+                          "file and finish it; under v1 accounting the "
+                          "finished outputs are byte-identical to the "
+                          "uninterrupted run.  World-building flags are "
+                          "ignored: the snapshot is the world")
     run.add_argument("--sample-interval", type=float, metavar="SECONDS",
                      help="periodic cluster-side samples every SECONDS of sim time; "
                           "sampling never perturbs the replay")
@@ -795,12 +1235,29 @@ def build_parser() -> argparse.ArgumentParser:
                      help="write run counters/gauges/histograms in the Prometheus text "
                           "exposition format (with --out, metrics.prom/metrics.json are "
                           "written there too)")
+    run.add_argument("--self-profile", metavar="PATH",
+                     help="profile the replay loop itself: bucket each "
+                          "batch's wall time into phases and write PATH as "
+                          "a ui.perfetto.dev-loadable document with the "
+                          "machine-readable 'selfprof' summary block; "
+                          "replay output is byte-identical with or without "
+                          "the flag")
     run.add_argument("--cache-stats", action="store_true",
                      help="engine cache telemetry: each cache's hit/miss/invalidate counts "
                           "as cache_<name>_<outcome> summary keys and the "
                           "engine_cache_events{cache,outcome} registry family")
     run.add_argument("--sample-on-change", action="store_true",
                      help="also sample whenever a batch changes the health/degrade masks")
+    run.add_argument("--history", metavar="STORE",
+                     help="append this run's summary to the sqlite history "
+                          "store at STORE (created if missing), keyed by "
+                          "run_id/config_hash; `history trend` renders "
+                          "trajectories across invocations")
+    run.add_argument("--flush-events", type=float, default=None,
+                     metavar="SECONDS",
+                     help="flush the --events stream to disk at least every "
+                          "SECONDS of sim time.  Default: 512-record "
+                          "batching only")
     run.set_defaults(fn=cmd_run)
 
     gen = sub.add_parser("gen-trace", help="write a synthetic trace CSV")
@@ -817,6 +1274,87 @@ def build_parser() -> argparse.ArgumentParser:
     gen.set_defaults(fn=cmd_gen_trace)
 
     from gpuschedule_tpu_torch.policies import available
+
+    rep = sub.add_parser(
+        "report",
+        help="render an events.jsonl stream as one self-contained HTML "
+             "report (inline CSS/SVG, zero network fetches)",
+    )
+    rep.add_argument("--events", required=True, metavar="EVENTS_JSONL",
+                     help="stream captured by `run --events`")
+    rep.add_argument("--out", required=True, metavar="REPORT_HTML")
+    rep.add_argument("--title", help="report heading (default: from header)")
+    rep.add_argument("--json", metavar="PATH",
+                     help="also dump the full analysis document as JSON")
+    rep.add_argument("--no-header", action="store_true",
+                     help="admit bare streams captured without run identity "
+                          "(Python API without run_meta)")
+    rep.add_argument("--low-mem", action="store_true",
+                     help="bounded-memory analysis: spill finished job "
+                          "records to a sqlite temp store; the HTML is "
+                          "byte-identical, the --json document's means may "
+                          "differ in their last digits (summation order)")
+    rep.add_argument("--selfprof", metavar="PROFILE_JSON",
+                     help="fold a `run --self-profile` document into the "
+                          "report's Engine-health panel")
+    rep.add_argument("--alerts", metavar="ALERTS_JSONL",
+                     help="fold an alerts side stream into the report: "
+                          "timeline ticks on the occupancy chart plus a "
+                          "per-detector Alerts panel")
+    rep.set_defaults(fn=cmd_report)
+
+    cmpr = sub.add_parser(
+        "compare",
+        help="regression-diff two event streams for CI gating (exit 0 "
+             "within thresholds, 1 regressed, 2 not comparable); three "
+             "or more render an n-way policy x metric matrix",
+    )
+    cmpr.add_argument("streams", nargs="+", metavar="EVENTS_JSONL",
+                      help="two streams: baseline + candidate (the CI "
+                           "gate); three or more: n-way matrix columns")
+    cmpr.add_argument("--threshold", action="append",
+                      metavar="FLOAT|METRIC=FLOAT",
+                      help="relative worsening gate: a bare float sets the "
+                           "default (0.05), METRIC=FLOAT overrides one "
+                           "metric; repeatable.  Negative values demand "
+                           "improvement")
+    cmpr.add_argument("--allow-mismatch", action="store_true",
+                      help="compare runs of different seeds/configs anyway")
+    cmpr.add_argument("--json", metavar="PATH",
+                      help="write the machine-readable diff here")
+    cmpr.add_argument("--low-mem", action="store_true",
+                      help="bounded-memory analysis of each stream (see "
+                           "report --low-mem: means may differ in their "
+                           "last digits)")
+    cmpr.add_argument("--history", metavar="STORE",
+                      help="append every compared stream's summary to the "
+                           "sqlite history store (keyed by its header "
+                           "identity)")
+    cmpr.set_defaults(fn=cmd_compare)
+
+    hist = sub.add_parser(
+        "history",
+        help="cross-run history store: list appended results and render "
+             "per-metric trajectories across invocations",
+    )
+    hist.add_argument("action", choices=("list", "trend"),
+                      help="list: matching rows; trend: per-metric "
+                           "trajectory table with step deltas")
+    hist.add_argument("--store", required=True, metavar="STORE",
+                      help="sqlite store written by run/compare --history")
+    hist.add_argument("--metric", action="append", metavar="NAME",
+                      help="summary metric(s) to render (trend; "
+                           "repeatable; default avg_jct)")
+    hist.add_argument("--kind", help="filter: run / compare / bench")
+    hist.add_argument("--config", metavar="HASH",
+                      help="filter by config_hash")
+    hist.add_argument("--label", help="filter by bench label, e.g. "
+                                      "plain/1000")
+    hist.add_argument("--last", type=int, metavar="N",
+                      help="only the newest N matching rows")
+    hist.add_argument("--json", metavar="PATH",
+                      help="also write the matching rows as JSON")
+    hist.set_defaults(fn=cmd_history)
 
     cmp_ = sub.add_parser("compare-topology",
                           help="config #5: GPU placement schemes vs TPU slices")
@@ -883,6 +1421,18 @@ def build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--device", default=None,
                     help="'cpu' for the plain PyTorch versions; default: the card")
     tr.set_defaults(fn=cmd_train)
+
+    obs = sub.add_parser("obs", help="observability utilities (trace export)")
+    obs_sub = obs.add_subparsers(dest="obs_cmd", required=True)
+    exp = obs_sub.add_parser(
+        "export",
+        help="convert a run's events.jsonl into a ui.perfetto.dev-loadable "
+             "Chrome trace-event JSON",
+    )
+    exp.add_argument("--events", required=True, metavar="EVENTS_JSONL",
+                     help="events.jsonl written by `run --events --out`")
+    exp.add_argument("--out", required=True, metavar="TRACE_JSON")
+    exp.set_defaults(fn=cmd_obs_export)
 
     prof = sub.add_parser("profile", help="fit goodput curves from a step measured on the device")
     prof.add_argument("--model", action="append", required=True)

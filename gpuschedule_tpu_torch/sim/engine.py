@@ -17,14 +17,6 @@ exact rather than quantized to a time step.
 
 Single-process, pure Python, no accelerator in the loop (SURVEY.md §3.1:
 "pure single-process CPU sim").
-
-What the port does not have yet refuses with a ``ValueError`` that names
-the missing module, at construction (``accounting="v2"``:
-``sim/ledger.py``; ``snapshot_every`` / ``snapshot_path``:
-``sim/snapshot.py``) or at the call (:meth:`snapshot`, :meth:`restore`,
-:meth:`fork`).  The branches those objects would drive are carried over as
-they are, unreachable until their module is ported, so that a replay
-without them is the JAX package's replay, step for step.
 """
 
 from __future__ import annotations
@@ -66,12 +58,6 @@ _COMPLETION, _ARRIVAL, _TICK, _FAULT, _REPAIR, _WARN, _SAMPLE = (
 # the cursor.  Only present in speculative forks / direct API use;
 # ordinary replays never push it.
 _WHATIF = 8
-
-
-def _not_ported(what: str, module: str) -> ValueError:
-    return ValueError(
-        f"{what} needs {module}, which gpuschedule_tpu_torch does not port yet"
-    )
 
 
 def _prog(job: Job) -> dict:
@@ -143,12 +129,19 @@ class Simulator:
             raise ValueError(
                 f"accounting must be 'v1' or 'v2', got {accounting!r}"
             )
-        if accounting == "v2":
-            raise _not_ported("accounting='v2'", "sim/ledger.py")
         self.accounting = accounting
-        self._lazy = False
+        self._lazy = accounting == "v2"
         self._ledger = None
         self._lv = None  # the ledger iff it maintains columns (vector mode)
+        if self._lazy:
+            from gpuschedule_tpu_torch.sim.ledger import JobLedger
+
+            self._ledger = JobLedger(
+                attribution=bool(getattr(metrics, "attribution", False)),
+                vector=bool(getattr(policy, "reads_progress", True)),
+            )
+            if self._ledger.vector:
+                self._lv = self._ledger
         # Periodic engine snapshots: every ``snapshot_every``
         # sim seconds the full engine state is serialized to
         # ``snapshot_path`` (sim/snapshot.py), making long replays
@@ -162,8 +155,6 @@ class Simulator:
             raise ValueError(
                 f"snapshot_every must be > 0, got {snapshot_every}"
             )
-        if snapshot_every is not None:
-            raise _not_ported("periodic snapshots (snapshot_every=)", "sim/snapshot.py")
         self._snap_every = snapshot_every
         self._snap_path = snapshot_path
         self._snap_next = snapshot_every if snapshot_every is not None else math.inf
@@ -1962,6 +1953,17 @@ class Simulator:
         for job in self.running:
             job.sched.clear()
         self.policy = policy
+        if self._lazy:
+            from gpuschedule_tpu_torch.sim.ledger import JobLedger
+
+            self._ledger = JobLedger(
+                attribution=self.attribution,
+                vector=bool(getattr(policy, "reads_progress", True)),
+            )
+            self._lv = self._ledger if self._ledger.vector else None
+            if self._lv is not None:
+                for job in self.running:
+                    self._lv.bind(job)
         policy.attach(self)
         # request_wakeup drops same-instant ticks; the swap wants one NOW
         self._push(self.now, _TICK)
@@ -2054,7 +2056,10 @@ class Simulator:
         (sim/snapshot.py).  Purely observational — the replay's own
         bytes never move; RNG-free by construction since every stochastic
         stream (trace, faults) is pregenerated into specs."""
-        raise _not_ported("snapshot", "sim/snapshot.py")
+        from gpuschedule_tpu_torch.sim.snapshot import save_snapshot
+
+        save_snapshot(self, path)
+        self._snap_writes += 1
 
     @classmethod
     def restore(cls, path, *, metrics=None, events_sink=None, profiler=None):
@@ -2063,7 +2068,12 @@ class Simulator:
         accounting the resumed tail is byte-identical to the
         uninterrupted run (events.jsonl / jobs.csv / utilization.csv);
         under v2 it is closure-exact (docs/performance.md)."""
-        raise _not_ported("restore", "sim/snapshot.py")
+        from gpuschedule_tpu_torch.sim.snapshot import load_snapshot
+
+        return load_snapshot(
+            path, metrics=metrics, events_sink=events_sink,
+            profiler=profiler,
+        )
 
     def fork(self):
         """In-memory speculative copy (the digital-twin primitive): a
@@ -2072,7 +2082,9 @@ class Simulator:
         never write into the parent's outputs.  Counters and utilization
         integrals carry over, so the fork's ``result()`` covers the whole
         history."""
-        raise _not_ported("fork", "sim/snapshot.py")
+        from gpuschedule_tpu_torch.sim.snapshot import fork_simulator
+
+        return fork_simulator(self)
 
     # ------------------------------------------------------------------ #
     # cache telemetry

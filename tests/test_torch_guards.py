@@ -81,7 +81,8 @@ def test_bench_has_no_cpu_fallback(no_cuda, capsys):
 def test_scans_cover_the_bench_and_the_card_table():
     """The import scans below cover these files, the data, checkpoint and
     tracer modules among them, and the simulator's modules: its topology,
-    fabric and fault modules too."""
+    fabric and fault modules, v2 accounting, snapshots, the config-hash
+    table and the event stream's readers too."""
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     assert {"gpuschedule_tpu_torch/bench.py", "gpuschedule_tpu_torch/cluster/cards.py",
             "gpuschedule_tpu_torch/models/cnn.py", "gpuschedule_tpu_torch/data/loader.py",
@@ -94,7 +95,9 @@ def test_scans_cover_the_bench_and_the_card_table():
         "policies/fifo", "policies/srtf", "policies/dlas", "policies/optimus",
         "policies/gandiva", "policies/themis", "cluster/gpu", "placement/__init__",
         "placement/schemes", "net/__init__", "net/fabric", "net/maxmin", "net/model",
-        "faults/__init__", "faults/schedule", "faults/hazard", "faults/recovery", "analysis")}
+        "faults/__init__", "faults/schedule", "faults/hazard", "faults/recovery", "analysis",
+        "sim/ledger", "sim/snapshot", "worldspec", "obs/selfprof", "obs/analyze",
+        "obs/history", "obs/compare", "obs/report", "obs/__init__")}
     assert sim <= names
 
 

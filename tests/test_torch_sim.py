@@ -223,24 +223,44 @@ def test_run_until_then_run_and_what_if_mutations_equal_jax(world):
     ({"accounting": "v2"}, "sim/ledger.py"),
     ({"snapshot_every": 60.0, "snapshot_path": "snap.pkl"}, "sim/snapshot.py"),
 ])
-def test_unported_engine_branches_refuse_at_construction(kw, module):
-    with pytest.raises(ValueError, match=f"needs {module}, which gpuschedule_tpu_torch"):
-        Simulator(SimpleCluster(8), make_policy("fifo"), [], **kw)
+def test_unported_engine_branches_refuse_at_construction(kw, module, tmp_path):
+    """The engine arguments that ``module`` serves construct and replay
+    as the JAX package's do: v2 accounting, periodic snapshots."""
+    if "snapshot_path" in kw:
+        kw = {**kw, "snapshot_path": tmp_path / kw["snapshot_path"]}
+    got = []
+    for pkg in (JAX, PORT):
+        sim = pkg.Simulator(pkg.clusters["simple"](), pkg.make_policy("dlas"),
+                            pkg.trace.generate_poisson_trace(60, seed=4), **kw)
+        got.append(sim.run().summary())
+        if "snapshot_path" in kw:
+            assert sim._snap_writes > 0 and kw["snapshot_path"].exists()
+    assert got[0] == got[1]
 
 
 def test_unported_engine_calls_refuse(tmp_path):
-    sim = Simulator(SimpleCluster(8), make_policy("fifo"), trace.generate_poisson_trace(5))
-    for call, module in ((lambda: sim.snapshot(tmp_path / "s"), "sim/snapshot.py"),
-                         (lambda: Simulator.restore(tmp_path / "s"), "sim/snapshot.py"),
-                         (lambda: sim.fork(), "sim/snapshot.py")):
-        with pytest.raises(ValueError, match=f"needs {module}"):
-            call()
-    assert not list(tmp_path.iterdir())
-    # the engine still validates what the JAX engine validates first
-    with pytest.raises(ValueError, match="accounting must be 'v1' or 'v2'"):
-        Simulator(SimpleCluster(8), make_policy("fifo"), [], accounting="v3")
-    with pytest.raises(ValueError, match="arm together"):
-        Simulator(SimpleCluster(8), make_policy("fifo"), [], snapshot_path="s")
+    """``snapshot``, ``restore`` and ``fork`` finish a paused replay as the
+    JAX package's do; the engine validates what the JAX engine validates,
+    in its words."""
+    got = []
+    for pkg, side in ((JAX, "jax"), (PORT, "port")):
+        sim = pkg.Simulator(pkg.clusters["simple"](), pkg.make_policy("dlas"),
+                            pkg.trace.generate_poisson_trace(60, seed=4))
+        sim.run_until(2000.0)
+        sim.snapshot(tmp_path / side)
+        forked = sim.fork().run().summary()
+        restored = pkg.Simulator.restore(tmp_path / side).run().summary()
+        assert forked == restored == sim.run().summary()
+        got.append(restored)
+    assert got[0] == got[1]
+    for kw in ({"accounting": "v3"}, {"snapshot_path": "s"}, {"snapshot_every": 5.0},
+               {"snapshot_every": -1.0, "snapshot_path": "s"}):
+        msgs = []
+        for pkg in (JAX, PORT):
+            with pytest.raises(ValueError) as e:
+                pkg.Simulator(pkg.clusters["simple"](), pkg.make_policy("fifo"), [], **kw)
+            msgs.append(str(e.value))
+        assert msgs[0] == msgs[1]
 
 
 @pytest.mark.parametrize("name", ["no-such-policy"])

@@ -117,12 +117,36 @@ def test_spans_record_the_engine_loop(capsys, tmp_path):
     ["--snapshot", "s.pkl", "--snapshot-every", "60"], ["--resume", "s.pkl"],
     ["--self-profile", "p.json"], ["--accounting", "v2"],
 ])
-def test_flags_of_later_slices_are_rejected(flag, capsys):
-    with pytest.raises(SystemExit) as e:
-        cli.main(["run", "--synthetic", "5", *flag])
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert "unrecognized arguments" in err or "invalid choice" in err
+def test_flags_of_later_slices_are_rejected(flag, capsys, tmp_path, monkeypatch):
+    """Each flag of the event-stream, snapshot and v2 slice runs in the
+    port's parser as in the JAX CLI: the same stdout line and the same
+    files (the self-profile's wall seconds aside, and ``--resume``
+    finishing a snapshot of its own package)."""
+    lines, files = [], []
+    for side, main in (("jax", jax_cli.main), ("port", cli.main)):
+        (tmp_path / side).mkdir()
+        monkeypatch.chdir(tmp_path / side)
+        if "--resume" in flag:
+            assert main(["run", "--synthetic", "5", "--snapshot", "s.pkl",
+                         "--snapshot-every", "2000"]) == 0
+            capsys.readouterr()
+        assert main(["run", "--synthetic", "5", *flag, "--out", "o"]) == 0
+        lines.append(capsys.readouterr().out)
+        files.append({f.name: f.read_bytes() for f in sorted((tmp_path / side).rglob("*"))
+                      if f.is_file() and f.suffix not in (".db", ".pkl") and f.name != "p.json"})
+    assert lines[0] == lines[1] and json.loads(lines[1])["num_finished"] == 5
+    assert files[0] == files[1]
+    if "--self-profile" in flag:
+        docs = [json.loads((tmp_path / side / "p.json").read_text())["selfprof"]
+                for side in ("jax", "port")]
+        assert [set(d["phases"]) for d in docs] == [set(docs[0]["phases"])] * 2
+        assert docs[0]["batches"] == docs[1]["batches"] > 0
+    if "--history" in flag:
+        rows = []
+        for side, main in (("jax", jax_cli.main), ("port", cli.main)):
+            assert main(["history", "list", "--store", str(tmp_path / side / "h.db")]) == 0
+            rows.append(json.loads(capsys.readouterr().out))
+        assert rows[0] == rows[1] and rows[1]["kind"] == "run"
 
 
 def test_profile_charge_equals_jax(curves):
