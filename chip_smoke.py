@@ -263,6 +263,27 @@ Phases, each fatal on failure (exit code 1, no result line):
    uninterrupted run's bytes, and no process with a CUDA context; each
    command's wall seconds beside the host CPU, the card's name and power
    limit.  An ``{"events": ...}`` line;
+23. sweeps and what-if (``sweeps_start``, ``sweeps_check``,
+   ``sweeps_timed``): SWEEP_RUNS' nine processes start before phase 21's
+   commands and are waited for after phase 22: ``faults`` at its defaults
+   (eight policies, 200 jobs, MTBF 6 h, 8x8), ``tools.fault_sweep`` and
+   ``tools.net_sweep`` over four workers, ``whatif`` on
+   ``data/philly_10k.csv`` on v5p-256 under DLAS paused at WHATIF_AT with
+   a pool of four (16 admits, a drain, a policy swap; ``--trace-out``,
+   ``--history``, ``--prom``), a short DLAS replay's snapshot and
+   ``whatif --resume`` from it, ``tools.report_smoke``,
+   ``tools.attrib_smoke`` and ``tools.fault_chaos``: each line, file,
+   stream and artifact (pooled ones against the JAX package's serial
+   ones), whatif document (``canonical_document``), history row and
+   ``--prom`` family held to the JAX package's (SWEEP_PINS, SWEEP_LINES),
+   each fleet trace to its structure (``check_fleet``), no process with a
+   CUDA context (SWEEP_NO_CUDA) but WHATIF_CUDA's: Optimus online on the
+   card, whose pool then spawns, and a worker profiles the admitted
+   model into the curve file.  Then, alone on the host,
+   ``tools.engine_bench --sizes 10000`` and ``tools.whatif_bench``, each
+   with its gate (the port's floors file; speed-up >= 1.5, p50 <= 1000
+   ms).  Each command's wall seconds beside the host CPU, the card's name
+   and power limit.  A ``{"sweeps": ...}`` line;
 14. a ``{"train": ...}`` line, a ``{"kernels": [...]}`` line (the five
    kernels and the three f32 forms; K1-K3 with their launches on the MoE +
    flash path, phase 13's path and phases 15's and 16's flash cells too,
@@ -669,6 +690,117 @@ EVENTS_LIST_FIFO = (
     '{"config_hash": "20551f6eb60e", "kind": "run", "label": "", "policy": "fifo", "r'
     'un_id": "fifo-s0-20551f6eb60e", "seed": 0, "seq": 1}'
 )
+# phase 23: sweeps and what-if; "{tmp}" is the phase's temporary directory.
+# Each entry is (kind, arguments): "cli" runs the port's CLI, "tool" a module of
+# gpuschedule_tpu_torch.tools as ``python -m`` would, "chain" CLI commands one
+# after the other in one process, split at "--then".
+SWEEP_MTBFS = "inf,604800,86400,43200"  # the fault-free arm, a week, a day, half a day
+WHATIF_WORLD = ("--policy", "dlas", "--cluster", "tpu-v5p", "--philly", SIM_PHILLY)
+WHATIF_AT = 300000.0  # mid-trace: 81 jobs running, 38 queued under DLAS (arrivals end ~673,000 s)
+WHATIF_QUERIES = (
+    *(arg for i in range(16) for arg in (
+        "--admit", f"chips=16,duration=7200,job_id=wifq{i},at={WHATIF_AT + 1800 * i:.0f}")),
+    "--drain", f"pod=0,at={WHATIF_AT + 20000:.0f},duration=3600", "--swap-policy", "fifo")
+WHATIF_POOL = 4
+SWEEP_RUNS = {  # started beside phase 21's commands
+    "faults": ("cli", "faults", "--events", "{tmp}/fev", "--out", "{tmp}/faults.json"),
+    "fault_sweep": ("tool", "fault_sweep", "--mtbfs", SWEEP_MTBFS, "--workers", "4",
+                    "--trace", "{tmp}/fs.trace.json", "--out", "{tmp}/fs.json"),
+    "net_sweep": ("tool", "net_sweep", "--workers", "4", "--trace", "{tmp}/ns.trace.json",
+                  "--out", "{tmp}/ns.json"),
+    "whatif": ("cli", "whatif", *WHATIF_WORLD, "--at", f"{WHATIF_AT:.0f}", *WHATIF_QUERIES,
+               "--pool", str(WHATIF_POOL), "--trace-out", "{tmp}/wi.trace.json",
+               "--history", "{tmp}/wi.db", "--prom", "{tmp}/wi.prom", "--out", "{tmp}/wi.json"),
+    # a short DLAS replay that snapshots once, at 200,000 s, then the
+    # mirror taken from that snapshot
+    "whatif-resume": ("chain", "run", "--policy", "dlas", "--cluster", "tpu-v5e", "--dims", "8x8",
+                      "--synthetic", "800", "--seed", "42", "--snapshot", "{tmp}/w.pkl",
+                      "--snapshot-every", "200000", "--then", "whatif", "--resume", "{tmp}/w.pkl",
+                      "--at", "200000", "--admit", "chips=8,duration=3600,at=201000",
+                      "--drain", "pod=0,at=205000,duration=7200", "--swap-policy", "srtf",
+                      "--out", "{tmp}/wr.json"),
+    "report_smoke": ("tool", "report_smoke"),
+    "attrib_smoke": ("tool", "attrib_smoke"),
+    # its 40 cells over four workers (the document is the serial one's):
+    # one Gandiva cell takes 155 s alone on an 8-core host (PERF.md)
+    "fault_chaos": ("tool", "fault_chaos", "--workers", "4"),
+}
+# Optimus profiling online on the card in the whatif parent, then a pooled
+# admit of a model the mirror has not profiled: the pool spawns its
+# workers (a forked child cannot use CUDA), and the worker profiles the
+# model on the card into the curve file.
+WHATIF_CUDA_MODEL = "transformer-long"
+WHATIF_CUDA = ("cli", "whatif", "--policy", "optimus", "--curves", "{tmp}/wc.json", "--online",
+               "--cluster", "tpu-v5e", "--dims", "4x4", "--pods", "2", "--synthetic", "12",
+               "--seed", "42", "--at", "3600", "--pool", "2",
+               "--admit", f"chips=4,duration=3600,model={WHATIF_CUDA_MODEL}",
+               "--trace-out", "{tmp}/wc.trace.json", "--out", "{tmp}/wc.out.json")
+SWEEP_TIMED = {  # after phase 22, one at a time, alone on the host
+    "engine_bench": ("tool", "engine_bench", "--sizes", "10000", "--out", "{tmp}/eb.json"),
+    "whatif_bench": ("tool", "whatif_bench", "--out", "{tmp}/wb.json"),
+}
+SWEEP_TIMEOUT_S = 600
+# What the JAX package printed and wrote for SWEEP_RUNS' commands, as
+# ``python -m gpuschedule_tpu.cli`` and ``tools/*.py`` ran them on the CPU
+# (whatif with --pool 0, the sweeps with --workers 1: the pooled outputs
+# are held to the serial ones), the phase's temporary directory written
+# "{tmp}": sha256 of the faults line and of each file; of the whatif
+# documents without their latency and pool size (whatif_canonical_sha),
+# the history rows without time stamp and latency (whatif_history), the
+# --prom lines without latency buckets and pool counters (prom_families);
+# and the smokes' lines without their temporary directory.
+# tests/test_torch_whatif.py recomputes the "ns.json" pin from the JAX package.
+SWEEP_PINS = {
+    'faults line': '962522b292410920bbb21e2df269baa7568b60b6dd1c3bf09f37e41091db629e',
+    'faults.json': '65c3c02008635a91eb99a35cd238fd5e2315afba0d21e1d15bcad30e44ada421',
+    'fifo.events.jsonl': 'c647f231350915e1c9e4bfb0d3ac42cba317b9995fee9be4415f333b2c653205',
+    'themis.events.jsonl': '00055a71f892c5c9e290fcfa1e2ed2728d4b62530e64673ba8901b818b3d7186',
+    'gandiva.events.jsonl': 'acf836c309cc991a739a720d823fcc150336a379f914ce7f9768986774ef7f30',
+    'fifo-backfill.events.jsonl': 'f1e2e273b1f4db0f26e6730ae49e9c16520a44208308b4c86fd1dc8406c99de3',
+    'srtf-ckpt.events.jsonl': 'ca4b993f9d4ebc6f38dbf03bc56f81b8cec69087e0da32aeee1a7c5b514edb35',
+    'srtf.events.jsonl': 'b59a586e7be6e915ed2cd4b6f8174cd2a3ce76cfe1cf05631d907407668562d7',
+    'optimus.events.jsonl': '8210b2f4b09a1648188511a746b563b64057ea4adc36da34a89f61c688549036',
+    'dlas.events.jsonl': '0fbbc2d13173d806d9ddfd479dd534cba9ee2fa7d19cf904f438a855b9629dd4',
+    'fs.json': 'c9ad9227a8447e73c7ddd31ca51322517ab7042205fbd2400347614740b3f60a',
+    'ns.json': '677541474158699670cac42268da62869b775a46e6a892f7b4fddf38757248e9',
+    'whatif canonical': '93a723b11f1349da217a464ae7e9d98fb7579be987de7eab9c8d0b63a282a291',
+    'whatif history': 'e5b64c1445ae849862a2696e1c32795d6d8938e97148adbd80ec57903c735e02',
+    'whatif prom': 'fc7761e9bd0c3bb82376c079431c398903b956d39180ed1278f539953f93836d',
+    'whatif-resume canonical': '607717dae708325b212a1603637b2a645a60df1b7f0a26753a319bced115512c',
+}
+SWEEP_LINES = {
+    'report_smoke': {'events_a': 6366, 'ok': True, 'report_bytes': 138515, 'self_compare_rc': 0, 'tightened_compare_rc': 1},
+    'attrib_smoke': {'delay_by_cause': {'admission': 38665366.16, 'fault-outage': 12062100.869, 'net-degraded': 11515.309, 'overhead': 2637.782, 'policy-preempt': 49561041.052, 'work': 1261587.066}, 'events': 27384, 'max_jct_residual': 4.656612873077393e-10, 'max_wait_residual': 4.656612873077393e-10, 'mean_phys_occupancy': 0.1173, 'ok': True, 'report_bytes': 149866, 'samples': 3224},
+    'fault_chaos': {'cells': 40, 'configs': 5, 'failed_cells': 0},
+}
+# A phase-23 process: the command, then whether it made a CUDA context.
+SWEEP_NO_CUDA = (
+    "import runpy, sys, torch\n"
+    "kind, argv = sys.argv[1], sys.argv[2:]\n"
+    "if kind == 'tool':\n"
+    "    sys.argv = [argv[0], *argv[1:]]\n"
+    "    try:\n"
+    "        runpy.run_module('gpuschedule_tpu_torch.tools.' + argv[0], run_name='__main__',\n"
+    "                         alter_sys=True)\n"
+    "        rc = 0\n"
+    "    except SystemExit as e:\n"
+    "        rc = e.code if isinstance(e.code, int) else int(e.code is not None)\n"
+    "else:\n"
+    "    from gpuschedule_tpu_torch.cli import main\n"
+    "    parts, part = [], []\n"
+    "    for a in argv:\n"
+    "        if a == '--then':\n"
+    "            parts.append(part)\n"
+    "            part = []\n"
+    "        else:\n"
+    "            part.append(a)\n"
+    "    for part in parts + [part]:\n"
+    "        rc = main(part)\n"
+    "        sys.stdout.flush()\n"
+    "        if rc:\n"
+    "            break\n"
+    "print(f'cuda_initialized={torch.cuda.is_initialized()}', file=sys.stderr)\n"
+    "sys.exit(rc)")
 ROOT = Path(__file__).resolve().parent
 
 
@@ -2749,42 +2881,60 @@ def host_cpu() -> str:
     return f"{name or 'model not reported'}, {platform.machine()}, {os.cpu_count()} CPUs"
 
 
-def cli_procs(cmds: dict, timeout: float = SIM_TIMEOUT_S) -> dict:
+class Procs:
     """Each of ``cmds`` (label -> command line) in a process of its own,
-    all started together from the checkout's root: each one's exit code,
-    stdout, stderr and wall seconds (interpreter start and imports
-    included), timed to its own end; None for one that ran past
-    ``timeout`` (it is killed).  Every process has ended on return."""
-    import threading
+    all started together from the checkout's root, a waiter thread each;
+    :meth:`join` gives each one's exit code, stdout, stderr and wall
+    seconds (interpreter start and imports included), timed to its own
+    end, None for one that ran past ``timeout`` (it is killed).  Every
+    process has ended when :meth:`join` or :meth:`kill` returns."""
 
-    procs, ended = {}, {}
+    def __init__(self, cmds: dict, timeout: float):
+        import threading
 
-    def wait(label, t0, proc):
-        # each process's own end: a thread a process, so one that ends
-        # early is not timed to the end of another
+        self.labels, self.procs, self.ended = list(cmds), {}, {}
+
+        def wait(label, t0, proc):
+            # each process's own end: a thread a process, so one that ends
+            # early is not timed to the end of another
+            try:
+                out, err = proc.communicate(timeout=timeout)
+                self.ended[label] = (proc.returncode, out, err, time.perf_counter() - t0)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.communicate()
+
         try:
-            out, err = proc.communicate(timeout=timeout)
-            ended[label] = (proc.returncode, out, err, time.perf_counter() - t0)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.communicate()
+            for label, cmd in cmds.items():
+                self.procs[label] = (time.perf_counter(), subprocess.Popen(
+                    cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+            self.waiters = [threading.Thread(target=wait, args=(label, t0, proc))
+                            for label, (t0, proc) in self.procs.items()]
+            for t in self.waiters:
+                t.start()
+        except BaseException:
+            self.kill()
+            raise
 
-    try:
-        for label, cmd in cmds.items():
-            procs[label] = (time.perf_counter(), subprocess.Popen(
-                cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-        waiters = [threading.Thread(target=wait, args=(label, t0, proc))
-                   for label, (t0, proc) in procs.items()]
-        for t in waiters:
-            t.start()
-        for t in waiters:
-            t.join()
-    finally:
-        for _, proc in procs.values():
+    def kill(self) -> None:
+        for _, proc in self.procs.values():
             if proc.poll() is None:
                 proc.kill()
                 proc.communicate()
-    return {label: ended.get(label) for label in cmds}
+
+    def join(self) -> dict:
+        try:
+            for t in self.waiters:
+                t.join()
+        finally:
+            self.kill()
+        return {label: self.ended.get(label) for label in self.labels}
+
+
+def cli_procs(cmds: dict, timeout: float = SIM_TIMEOUT_S) -> dict:
+    """:class:`Procs` of ``cmds``, waited for: each one's exit code, stdout,
+    stderr and wall seconds, None for one that ran past ``timeout``."""
+    return Procs(cmds, timeout).join()
 
 
 def cli_runs(argvs: dict, timeout: float = SIM_TIMEOUT_S) -> dict:
@@ -3131,6 +3281,237 @@ def events_phase(smi) -> dict:
     log(f"phase 22: every line and file the JAX package's; the resumed run's files the "
         f"uninterrupted run's ({snapshots} snapshots); no process made a CUDA context; "
         f"{found['phase_s']:.1f} s")
+    return found
+
+
+def _sha(text: str) -> str:
+    import hashlib
+
+    return hashlib.sha256(text.encode()).hexdigest()
+
+
+def whatif_canonical_sha(path) -> str:
+    """sha256 of a ``whatif --out`` document without its wall-clock
+    readings (``canonical_document``) and without ``pool``, the pool size
+    it was asked for: a pooled document is held to the serial one."""
+    from gpuschedule_tpu_torch.sim.whatif import canonical_document
+
+    with open(path) as f:
+        doc = canonical_document(json.load(f))
+    doc.pop("pool")
+    return _sha(json.dumps(doc, sort_keys=True))
+
+
+def whatif_history(store) -> tuple:
+    """A ``whatif --history`` store's query rows without their time stamp
+    and latency, as sha256 of their JSON, and the pool row's metrics (None
+    without a pool)."""
+    from gpuschedule_tpu_torch.obs import HistoryStore
+
+    with HistoryStore(store) as st:
+        rows = st.rows(kind="whatif")
+    kept = [{"seq": r.seq, "kind": r.kind, "run_id": r.run_id, "config_hash": r.config_hash,
+             "policy": r.policy, "seed": r.seed, "label": r.label,
+             "metrics": {k: v for k, v in r.metrics.items() if k != "latency_ms"}}
+            for r in rows if r.label != "pool"]
+    pool = [r.metrics for r in rows if r.label == "pool"]
+    return _sha(json.dumps(kept, sort_keys=True)), (pool[0] if pool else None)
+
+
+def prom_families(text: str) -> tuple:
+    """A ``--prom`` file as sha256 of its lines without the latency
+    histogram's buckets and sum (wall clock) and the pool's counters
+    (there only when pooled), and the pool counters' lines."""
+    lines = text.strip().splitlines()
+    kept = [ln for ln in lines if not ln.startswith(("whatif_query_latency_ms_bucket",
+                                                     "whatif_query_latency_ms_sum"))
+            and "pool_" not in ln]
+    return _sha("\n".join(kept)), [ln for ln in lines if ln.startswith("pool_")]
+
+
+def fleet_shape(doc: dict) -> dict:
+    """The time-free structure of a merged fleet trace: its federation,
+    its exporter and trace id, the merged registry's counters, the
+    parent's spans (name and args) and every worker span's name and args
+    counted over all workers (which worker ran a task is the pool's
+    choice)."""
+    procs = {e["pid"]: e["args"]["name"] for e in doc["traceEvents"]
+             if e["ph"] == "M" and e["name"] == "process_name"}
+    parent, workers = [], {}
+    for e in doc["traceEvents"]:
+        if e["ph"] != "X":
+            continue
+        item = json.dumps([e["name"], e.get("cat"), e.get("args", {})], sort_keys=True)
+        if procs[e["pid"]] in doc["federation"]["workers"]:
+            workers[item] = workers.get(item, 0) + 1
+        else:
+            parent.append(item)
+    counters = {name: fam["value"] for name, fam in doc.get("registry", {}).items()
+                if fam["kind"] == "counter"}
+    return {"federation": doc["federation"], "other": doc["otherData"], "counters": counters,
+            "parent": sorted(parent), "workers": dict(sorted(workers.items())),
+            "selfprof_workers": sorted(doc.get("selfprof", {}).get("workers", {}))}
+
+
+def check_fleet(path, *, trace_id, tasks, pool, parent, worker_spans, counters) -> dict:
+    """Phase 23's structure check of a merged fleet trace: ``tasks`` tasks
+    over workers of a pool of ``pool``, the parent's span names, each
+    task's worker spans (``worker_spans`` a task) all carrying the trace id
+    and the dispatch span as their parent, the named counters."""
+    with open(path) as f:
+        doc = json.load(f)
+    shape = fleet_shape(doc)
+    fed = shape["federation"]
+    names = {f"worker-{i}" for i in range(pool)}
+    check(fed["tasks"] == tasks and fed["workers"] and set(fed["workers"]) <= names,
+          f"{path}: federation {fed}, not {tasks} tasks over workers of {sorted(names)}")
+    check(shape["other"]["trace_id"] == trace_id and shape["other"]["clock"] == "wall",
+          f"{path}: otherData {shape['other']}")
+    got = sorted({json.loads(item)[0] for item in shape["parent"]})
+    check(got == sorted(parent), f"{path}: parent spans {got}, not {sorted(parent)}")
+    per_name = {}
+    for item, n in shape["workers"].items():
+        name, _, args = json.loads(item)
+        check(args.get("trace_id") == trace_id and args.get("parent_span_id") == "dispatch"
+              and 0 <= args.get("task", -1) < tasks,
+              f"{path}: a worker span {name} does not link to the dispatch: {args}")
+        per_name[name] = per_name.get(name, 0) + n
+    for name, each in worker_spans.items():
+        check(per_name.get(name) == each * tasks,
+              f"{path}: {per_name.get(name)} worker spans {name}, not {each} a task")
+    for name, value in counters.items():
+        check(shape["counters"].get(name) == value,
+              f"{path}: counter {name} {shape['counters'].get(name)}, not {value}")
+    return {"tasks": fed["tasks"], "workers": fed["workers"],
+            "worker_spans": dict(sorted(per_name.items())),
+            "selfprof_workers": shape["selfprof_workers"]}
+
+
+def sweep_cmd(entry, tmp) -> list:
+    """The command line of a phase-23 entry: through SWEEP_NO_CUDA."""
+    kind, *argv = entry
+    return [sys.executable, "-c", SWEEP_NO_CUDA, kind, *(a.replace("{tmp}", tmp) for a in argv)]
+
+
+def sweeps_start(tmp) -> "Procs":
+    """Phase 23's processes that run beside phase 21's (SWEEP_RUNS and
+    WHATIF_CUDA), started now; :func:`sweeps_check` reads them."""
+    cmds = {label: sweep_cmd(entry, tmp) for label, entry in SWEEP_RUNS.items()}
+    cmds["whatif-cuda"] = sweep_cmd(WHATIF_CUDA, tmp)
+    return Procs(cmds, SWEEP_TIMEOUT_S)
+
+
+def _sweep_ended(ended, label, found, cpu, smi, cuda=False,
+                 how="started with phase 21's commands, one process each") -> dict:
+    check(ended[label] is not None, f"phase 23 {label} ran past {SWEEP_TIMEOUT_S} s")
+    rc, out, err, wall_s = ended[label]
+    err_lines = err.strip().splitlines()
+    check(rc == 0 and bool(err_lines) and err_lines[-1] == f"cuda_initialized={cuda}",
+          f"phase 23 {label} exited {rc}, or its CUDA context is not {cuda}: "
+          f"{err.strip()[-2000:]}")
+    found["wall_s"][label] = wall_s
+    log(f"phase 23 {label}: {wall_s:.3f} s wall ({how}) on host {cpu}; card {smi}")
+    return {"out": out.strip(), "err": err_lines[:-1]}
+
+
+def sweeps_check(procs, tmp, smi) -> dict:
+    """Phase 23, the part beside phase 21: wait for :func:`sweeps_start`'s
+    processes and hold what they printed and wrote to the JAX package's
+    (SWEEP_PINS, SWEEP_LINES), the fleet traces to their structure, and
+    the whatif spawned on the card to its curve file."""
+    cpu = host_cpu()
+    found = {"card": smi, "host_cpu": cpu, "wall_s": {}}
+    ended = procs.join()
+    res = {label: _sweep_ended(ended, label, found, cpu, smi) for label in SWEEP_RUNS}
+    cuda = _sweep_ended(ended, "whatif-cuda", found, cpu, smi, cuda=True)
+
+    def read(name):
+        return Path(tmp, name).read_text().replace(tmp, "{tmp}")
+
+    def pinned(label, got):
+        check(got == SWEEP_PINS[label], f"{label}: not the JAX package's ({got})")
+
+    # 1: faults at its defaults
+    pinned("faults line", _sha(res["faults"]["out"].replace(tmp, "{tmp}")))
+    pinned("faults.json", _sha(read("faults.json")))
+    streams = sorted(os.listdir(os.path.join(tmp, "fev")))
+    check(streams == sorted(k for k in SWEEP_PINS if k.endswith(".events.jsonl")),
+          f"faults --events wrote {streams}")
+    for name in streams:
+        pinned(name, _sha(read(f"fev/{name}")))
+    # 2, 3: the sweeps, pooled, against the serial artifacts; their fleets
+    for label, trace_id in (("fault_sweep", "fault-sweep-s0"), ("net_sweep", "net-sweep-s0")):
+        short = "fs" if label == "fault_sweep" else "ns"
+        pinned(f"{short}.json", _sha(read(f"{short}.json")))
+        line = json.loads(res[label]["out"])
+        found[label] = check_fleet(
+            os.path.join(tmp, f"{short}.trace.json"), trace_id=trace_id, tasks=line["cells"],
+            pool=4, parent=("dispatch",), worker_spans={"task": 1, "build": 1, "replay": 1},
+            counters={"pool_worker_respawns_total": 0.0, "pool_task_retries_total": 0.0})
+        found[label]["cells"] = line["cells"]
+    # 4: whatif on the Philly trace, pooled
+    doc = json.loads(Path(tmp, "wi.json").read_text())
+    pinned("whatif canonical", whatif_canonical_sha(os.path.join(tmp, "wi.json")))
+    rows_sha, pool_row = whatif_history(os.path.join(tmp, "wi.db"))
+    pinned("whatif history", rows_sha)
+    n_queries = len(doc["queries"])
+    check(pool_row == {"workers": WHATIF_POOL, "respawns": 0, "retries": 0,
+                       "queries": n_queries}, f"whatif's history pool row: {pool_row}")
+    prom_sha, pool_lines = prom_families(read("wi.prom"))
+    pinned("whatif prom", prom_sha)
+    check(pool_lines == ["pool_task_retries_total 0", "pool_worker_respawns_total 0"],
+          f"whatif --prom pool counters: {pool_lines}")
+    found["whatif"] = check_fleet(
+        os.path.join(tmp, "wi.trace.json"), trace_id=doc["run_id"], tasks=n_queries,
+        pool=WHATIF_POOL, parent=("enqueue", "dispatch", "reassemble"),
+        worker_spans={"task": 1, "fork": 1, "restore": 1, "mutate": 1, "replay": 1, "diff": 1},
+        counters={"whatif_queries_total": {'{kind="admit"}': 16.0, '{kind="drain"}': 1.0,
+                                           '{kind="policy-swap"}': 1.0}})
+    found["whatif"].update(latency_ms=doc["latency_ms"], at_s=doc["at_s"],
+                           mirror=doc["mirror"])
+    # 5: whatif from a snapshot
+    pinned("whatif-resume canonical", whatif_canonical_sha(os.path.join(tmp, "wr.json")))
+    # 6: the smokes and the chaos sweep
+    for label, want in SWEEP_LINES.items():
+        line = json.loads(res[label]["out"].splitlines()[-1])
+        line.pop("tmp", None)
+        check(line == want, f"{label}: {line}, not the JAX package's {want}")
+    # the pool on the card: spawned workers, the unseen model profiled by one
+    with open(os.path.join(tmp, "wc.json")) as f:
+        curves = json.load(f)
+    model = curves.get(WHATIF_CUDA_MODEL, {})
+    check(model.get("source", "").startswith("measured"),
+          f"whatif-cuda: no measured curve of {WHATIF_CUDA_MODEL} in the curve file: "
+          f"{sorted(curves)}")
+    wc = json.loads(Path(tmp, "wc.out.json").read_text())
+    admitted = wc["queries"][0].get("admitted", {})
+    check(admitted.get("end_state") is not None, f"whatif-cuda: the admit has no outcome: {wc}")
+    with open(os.path.join(tmp, "wc.trace.json")) as f:
+        wc_workers = json.load(f)["federation"]["workers"]
+    found["whatif_cuda"] = {"models": sorted(curves), "profiled_by_worker": WHATIF_CUDA_MODEL,
+                            "workers": wc_workers, "admitted": admitted}
+    log(f"phase 23 (beside phase 21): every pin the JAX package's; the fleet traces whole; "
+        f"whatif on the card spawned its pool and a worker profiled {WHATIF_CUDA_MODEL}")
+    return found
+
+
+def sweeps_timed(found, tmp, smi) -> dict:
+    """Phase 23, after phase 22, alone on the host: ``tools.engine_bench``
+    at 10,000 jobs with its gate (the port's floors file), then
+    ``tools.whatif_bench`` at its defaults with its gate."""
+    cpu = found["host_cpu"]
+    for label, entry in SWEEP_TIMED.items():
+        ended = Procs({label: sweep_cmd(entry, tmp)}, SWEEP_TIMEOUT_S).join()
+        rep = _sweep_ended(ended, label, found, cpu, smi, how="alone on the host")
+        found[label] = json.loads(rep["out"].splitlines()[-1])
+        check(found[label]["ok"], f"{label}'s gate failed: {found[label]}")
+    with open(os.path.join(tmp, "eb.json")) as f:
+        ladder = json.load(f)["ladder"]
+    found["engine_bench"]["rungs"] = {
+        r["config"]: {k: r.get(k) for k in ("elapsed_s", "jobs_per_s", "events_per_s",
+                                            "rss_peak_mb")} for r in ladder}
+    log(f"phase 23: engine_bench jobs/s {found['engine_bench']['jobs_per_s']}; whatif_bench "
+        f"{found['whatif_bench']} on host {cpu}; card {smi}")
     return found
 
 
@@ -3675,14 +4056,26 @@ def run() -> dict:
     print(json.dumps({"sim": sim_phase(torch, fa, smi)}))
 
     lap("20")
-    # --------------------------------------------------------------- 21 --
-    print(json.dumps({"topology": topology_phase(smi)}))
+    # ------------------------------------------------------- 21, 22, 23 --
+    # phase 23's host processes start beside phase 21's and may run on
+    # beside phase 22's; its two timed tools run after, alone on the host
+    sweep_tmp = tempfile.mkdtemp(prefix="chip_smoke_sweeps_")
+    try:
+        sweeps = sweeps_start(sweep_tmp)
+        try:
+            print(json.dumps({"topology": topology_phase(smi)}))
+            lap("21")
+            print(json.dumps({"events": events_phase(smi)}))
+            lap("22")
+        except BaseException:
+            sweeps.kill()
+            raise
+        found = sweeps_check(sweeps, sweep_tmp, smi)
+        print(json.dumps({"sweeps": sweeps_timed(found, sweep_tmp, smi)}))
+    finally:
+        shutil.rmtree(sweep_tmp, ignore_errors=True)
 
-    lap("21")
-    # --------------------------------------------------------------- 22 --
-    print(json.dumps({"events": events_phase(smi)}))
-
-    lap("22")
+    lap("23")
     log(f"phase wall seconds: {json.dumps(walls)}")
     # --------------------------------------------------------------- 14 --
     train = {

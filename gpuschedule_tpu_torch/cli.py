@@ -1,5 +1,5 @@
 """Command line: ``python -m gpuschedule_tpu_torch
-{run,gen-trace,report,compare,history,compare-topology,train,obs,profile} ...``.
+{run,whatif,gen-trace,faults,report,compare,history,compare-topology,train,obs,profile} ...``.
 
 Counterparts of the JAX package's subcommands:
 
@@ -28,6 +28,17 @@ Counterparts of the JAX package's subcommands:
   1 regressed, 2 not comparable) or the n-way matrix; the history
   store's rows and trends.  ``obs export`` turns a stream into its
   Perfetto trace.  Each writes the JAX CLI's bytes.
+- ``whatif`` builds the world as ``run`` does (or restores it,
+  ``--resume``), pauses it at ``--at`` and answers ``--admit``,
+  ``--drain`` and ``--swap-policy`` queries by speculative forks over a
+  bounded ``--horizon``, in this process or over ``--pool N`` warm
+  workers; ``--out``, ``--history``, ``--prom`` and ``--trace-out`` (one
+  merged Perfetto document of the fleet).  Without its latency readings
+  (``canonical_document``) the document is the JAX CLI's, pooled or not.
+- ``faults`` replays a Philly-like trace under each policy config of the
+  eight-policy suite at one MTBF (``--events DIR``: a stream a policy),
+  the JAX CLI's line, file and streams, to the byte.  The MTBF and
+  contention grids are ``tools.fault_sweep`` and ``tools.net_sweep``.
 - ``gen-trace`` writes a synthetic trace CSV (Poisson, or ``--philly-like``),
   the JAX CLI's file for the same flags, to the byte.
 - ``compare-topology`` replays one trace on GPU clusters under their
@@ -953,6 +964,260 @@ def cmd_history(args) -> int:
     return 0
 
 
+def cmd_faults(args) -> int:
+    """Fault-injection demo: one seeded chaos replay (Philly-like trace,
+    finite MTBF) per policy config, reporting the goodput decomposition —
+    which policies degrade gracefully as hardware gets flakier.
+
+    ``tools.fault_sweep`` is the full MTBF x policy grid; this subcommand
+    is its single-MTBF slice, small enough to eyeball.  The line, the
+    ``--out`` file and the ``--events`` streams are the JAX CLI's bytes.
+    """
+    from gpuschedule_tpu_torch.faults.sweep import POLICY_CONFIGS, jsonable, run_cell
+
+    keys = args.policies.split(",") if args.policies else list(POLICY_CONFIGS)
+    unknown = [k for k in keys if k not in POLICY_CONFIGS]
+    if unknown:
+        raise SystemExit(
+            f"unknown policy configs {unknown}; known: {sorted(POLICY_CONFIGS)}"
+        )
+    if args.restore == "auto":
+        restore: object = "auto"
+    else:
+        try:
+            restore = float(args.restore)
+        except ValueError:
+            raise SystemExit(
+                f"--restore wants seconds or 'auto', got {args.restore!r}"
+            ) from None
+    events_dir = None
+    if args.events:
+        events_dir = Path(args.events)
+        events_dir.mkdir(parents=True, exist_ok=True)
+    cells = [
+        run_cell(
+            k,
+            mtbf=args.mtbf,
+            repair=args.repair,
+            ckpt=args.ckpt,
+            restore=restore,
+            num_jobs=args.num_jobs,
+            seed=args.seed,
+            dims=_parse_dims(args.dims),
+            num_pods=args.pods,
+            max_time=args.max_time,
+            events_path=(
+                events_dir / f"{k}.events.jsonl" if events_dir else None
+            ),
+        )
+        for k in keys
+    ]
+    doc = jsonable({  # --mtbf inf must stay strict JSON ("inf", not Infinity)
+        "mtbf_s": args.mtbf,
+        "repair_s": args.repair,
+        "ckpt_s": args.ckpt,
+        "seed": args.seed,
+        "num_jobs": args.num_jobs,
+        "cells": cells,
+    })
+    print(json.dumps(doc, sort_keys=True))
+    if args.out:
+        out = Path(args.out)
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(json.dumps(doc, indent=2, sort_keys=True))
+    return 0
+
+
+def cmd_whatif(args) -> int:
+    """Interactive what-if queries against a mirrored replay:
+    build the world exactly like ``run``, advance the engine to ``--at``
+    and pause it there — a live mirror of cluster state — then answer
+    admit / drain / policy-swap queries by speculative forks (optionally
+    across a persistent worker pool), each returning the attributed
+    delta against a mutation-free baseline fork of the same bounded
+    horizon.  For the same flags, the canonical result document
+    (:func:`canonical_document`: without the latency readings), the
+    history rows and the ``--prom`` families are the JAX CLI's, but for
+    the wall-clock readings (latency, time stamps)."""
+    from gpuschedule_tpu_torch.obs import MetricsRegistry
+    from gpuschedule_tpu_torch.sim import Simulator
+    from gpuschedule_tpu_torch.sim.metrics import MetricsLog
+    from gpuschedule_tpu_torch.sim.whatif import (
+        WhatIfService,
+        append_history,
+        parse_admit_spec,
+        parse_drain_spec,
+        result_document,
+    )
+
+    queries = []
+    try:
+        for spec in args.admit or []:
+            queries.extend(parse_admit_spec(spec))
+        for spec in args.drain or []:
+            queries.append(parse_drain_spec(spec))
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
+    for name in args.swap_policy or []:
+        queries.append({"kind": "policy-swap", "policy": name})
+    if not queries:
+        raise SystemExit(
+            "whatif needs at least one --admit / --drain / --swap-policy "
+            "query"
+        )
+    if args.at < 0.0:
+        raise SystemExit(f"--at must be >= 0, got {args.at}")
+    if args.resume:
+        # flight-recorder handshake: mirror from a pinned
+        # engine snapshot (`watch --flight-dir` + `run --snapshot`)
+        # instead of rebuilding the world — world-building flags are
+        # ignored, the snapshot IS the world.  The mirror must never
+        # write into (or truncate!) the watched run's event stream, so
+        # the sink is detached and recording disarmed.
+        from gpuschedule_tpu_torch.sim.snapshot import SnapshotError
+
+        try:
+            sim = Simulator.restore(args.resume, events_sink=False)
+        except SnapshotError as e:
+            raise SystemExit(str(e)) from None
+        sim.metrics.record_events = False
+        sim.metrics.events = []
+        sim._snap_path = None
+        sim._snap_every = None
+        sim._snap_next = float("inf")
+        # the snapshotted run's --max-time was an output-capture cutoff,
+        # not a property of the world: speculating past the incident is
+        # the whole point, so the mirror's bound is --horizon (and an
+        # explicit --max-time on THIS invocation, when given)
+        sim.max_time = args.max_time or float("inf")
+        if args.at < sim.now:
+            raise SystemExit(
+                f"--at {args.at} is before the snapshot instant "
+                f"(t={sim.now}); pin an earlier snapshot"
+            )
+    else:
+        net_model = build_net(args)
+        if args.placement == "contention" and net_model is None:
+            raise SystemExit(
+                "--placement contention scores pods by residual DCN "
+                "bandwidth and needs the fabric model: add --net"
+            )
+        cluster = build_cluster(args, net=net_model)
+        jobs = load_jobs(args)
+        fault_plan = build_fault_plan(args, cluster, jobs)
+        # the mirror runs with attribution armed so every speculative
+        # delta decomposes by cause (the attribution machinery); whatif has no
+        # byte-compat surface of its own to preserve
+        metrics = MetricsLog(attribution=True)
+        try:
+            sim = Simulator(
+                cluster, build_policy(args), jobs,
+                metrics=metrics,
+                max_time=args.max_time or float("inf"),
+                faults=fault_plan,
+                net=net_model,
+                accounting=args.accounting,
+            )
+        except ValueError as e:
+            raise SystemExit(str(e)) from None
+    sim.run_until(args.at)
+    # deterministic user errors must exit cleanly BEFORE evaluation — a
+    # pooled worker would otherwise retry them with backoff and surface
+    # a raw traceback
+    for q in queries:
+        at = q.get("at")
+        if at is None:
+            continue
+        if at < sim.now:
+            raise SystemExit(
+                f"query at={at} is before the mirror instant "
+                f"(the engine paused at t={sim.now}); speculative "
+                "mutations cannot land in the replayed past"
+            )
+        if at > min(sim.now + args.horizon, sim.max_time):
+            raise SystemExit(
+                f"query at={at} is beyond the bounded replay window "
+                f"(mirror t={sim.now} + horizon {args.horizon}, capped "
+                f"by --max-time {sim.max_time}); it would never be "
+                "applied — raise --horizon or move it earlier"
+            )
+    if args.resume:
+        # the mirror's identity is the snapshotted run's, not the
+        # (ignored) world flags'
+        rm = sim.metrics.run_meta or {}
+        chash = str(rm.get("config_hash") or "resumed")
+        run_meta = {
+            "run_id": str(rm.get("run_id") or f"resumed-{sim.policy.name}"),
+            "seed": rm.get("seed"), "policy": sim.policy.name,
+            "config_hash": chash,
+        }
+    else:
+        chash = _run_config_hash(args)
+        run_meta = {
+            "run_id": f"{args.policy}-s{args.seed}-{chash}",
+            "seed": args.seed, "policy": args.policy, "config_hash": chash,
+        }
+    registry = MetricsRegistry()
+    fleet = None
+    if args.trace_out:
+        # arm cross-process tracing — the run_id is the trace
+        # id every worker span links back to
+        from gpuschedule_tpu_torch.obs import FleetCollector
+
+        fleet = FleetCollector(run_meta["run_id"], parent="whatif")
+    try:
+        service = WhatIfService(
+            sim, horizon=args.horizon, workers=args.pool, registry=registry,
+            fleet=fleet,
+        )
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
+    pool_stats = None
+    try:
+        results = service.evaluate(queries)
+        pool_stats = service.pool_stats()
+    except ValueError as e:
+        # belt and braces: any remaining deterministic query error (the
+        # evaluator re-validates against the fork's actual bound) is a
+        # user error, not a traceback
+        raise SystemExit(str(e)) from None
+    finally:
+        service.close()
+    doc = result_document(
+        sim, results, requested_at=args.at, horizon=args.horizon,
+        pool=args.pool, run_meta=run_meta,
+    )
+    print(json.dumps(doc, sort_keys=True))
+    if args.history:
+        # pool_stats() answers in serial mode too (for /status); the
+        # extra history "pool" row stays pool-only
+        n = append_history(args.history, results, run_meta=run_meta,
+                           pool_stats=pool_stats if args.pool else None)
+        print(f"{n} whatif history rows -> {args.history}", file=sys.stderr)
+    if args.out:
+        out = Path(args.out)
+        if out.parent and not out.parent.exists():
+            out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(json.dumps(doc, indent=2, sort_keys=True))
+    if fleet is not None:
+        # parent-side families (query latency, pool lifecycle) join the
+        # merged document FIRST; the federated worker families then fold
+        # into the --prom registry (this order, or worker counters would
+        # double-count in the document)
+        fleet.registry.merge(registry)
+        tdoc = fleet.write(args.trace_out)
+        print(
+            f"fleet trace ({tdoc['federation']['tasks']} tasks, "
+            f"{len(tdoc['federation']['workers'])} workers) -> "
+            f"{args.trace_out}",
+            file=sys.stderr,
+        )
+        fleet.merge_into(registry)
+    if args.prom:
+        registry.write(prom_path=args.prom)
+    return 0
+
+
 def cmd_gen_trace(args) -> int:
     from gpuschedule_tpu_torch.sim.philly import (
         PHILLY_MEAN_INTERARRIVAL_S,
@@ -1189,6 +1454,8 @@ def _add_world_args(p) -> None:
 
 
 def build_parser() -> argparse.ArgumentParser:
+    from gpuschedule_tpu_torch.policies import available
+
     p = argparse.ArgumentParser(prog="gpuschedule_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
     run = sub.add_parser("run", help="replay a trace under a policy")
@@ -1260,6 +1527,66 @@ def build_parser() -> argparse.ArgumentParser:
                           "batching only")
     run.set_defaults(fn=cmd_run)
 
+    wi = sub.add_parser(
+        "whatif",
+        help="interactive what-if queries against a mirrored replay: "
+             "pause the world at --at, then answer admit / drain / "
+             "policy-swap questions by speculative forks with "
+             "attributed deltas",
+    )
+    _add_world_args(wi)
+    wi.add_argument("--at", type=float, required=True, metavar="SECONDS",
+                    help="sim time to mirror the world at: the engine "
+                         "replays to the last batch at or before this "
+                         "instant and pauses there")
+    wi.add_argument("--resume", metavar="SNAPSHOT",
+                    help="mirror from an engine snapshot (e.g. a flight-"
+                         "recorder pin from `watch --flight-dir`) instead "
+                         "of rebuilding the world: restore, replay "
+                         "forward to --at, and serve queries there.  "
+                         "World-building flags are ignored — the "
+                         "snapshot is the world")
+    wi.add_argument("--horizon", type=float, default=86_400.0,
+                    metavar="SECONDS",
+                    help="bounded speculative-replay horizon per query "
+                         "(default: one day of sim time); deltas compare "
+                         "variant vs baseline forks at at+horizon")
+    wi.add_argument("--pool", type=int, default=0, metavar="N",
+                    help="persistent worker processes serving queries "
+                         "concurrently (each restores the mirror once, "
+                         "then forks per query); 0 (default) evaluates "
+                         "in-process")
+    wi.add_argument("--admit", action="append", metavar="SPEC",
+                    help="admit query: chips=8,duration=3600"
+                         "[,model=M][,at=T][,pods=0:2:5] — one candidate "
+                         "evaluation per pod in pods (omitted: the "
+                         "policy places it); repeatable")
+    wi.add_argument("--drain", action="append", metavar="SPEC",
+                    help="drain query: pod=7[,at=T][,duration=S] "
+                         "(duration defaults to permanent); repeatable")
+    wi.add_argument("--swap-policy", action="append", metavar="NAME",
+                    choices=available(),
+                    help="policy-swap query: rerun the future under "
+                         "NAME; repeatable")
+    wi.add_argument("--out", metavar="PATH",
+                    help="also write the full result document here")
+    wi.add_argument("--history", metavar="STORE",
+                    help="append one history row per query (kind "
+                         "'whatif') to the sqlite store at STORE")
+    wi.add_argument("--prom", metavar="PATH",
+                    help="write the query-latency histogram "
+                         "(whatif_query_latency_ms{kind}) in Prometheus "
+                         "text format")
+    wi.add_argument("--trace-out", metavar="PATH", dest="trace_out",
+                    help="write ONE merged Perfetto/Chrome trace of the "
+                         "whole fleet: parent enqueue/dispatch/reassemble "
+                         "spans plus a named track per worker, every "
+                         "worker span carrying the propagated trace id; "
+                         "also federates worker counters into --prom.  "
+                         "Off by default — disarmed runs are "
+                         "byte-identical")
+    wi.set_defaults(fn=cmd_whatif)
+
     gen = sub.add_parser("gen-trace", help="write a synthetic trace CSV")
     gen.add_argument("--num-jobs", type=int, required=True)
     gen.add_argument("--seed", type=int, default=0)
@@ -1273,7 +1600,39 @@ def build_parser() -> argparse.ArgumentParser:
     gen.add_argument("--out", required=True)
     gen.set_defaults(fn=cmd_gen_trace)
 
-    from gpuschedule_tpu_torch.policies import available
+    fl = sub.add_parser(
+        "faults",
+        help="fault-injection demo: seeded chaos replay across the policy "
+             "suite with goodput decomposition",
+    )
+    fl.add_argument("--policies",
+                    help="comma list of policy configs (default: the whole "
+                         "eight-policy suite; see tools.fault_sweep)")
+    fl.add_argument("--mtbf", type=float, default=6 * 3600.0,
+                    help="per-chip mean time between failures, seconds "
+                         "(inf = fault-free control arm)")
+    fl.add_argument("--repair", type=float, default=3600.0,
+                    help="mean repair duration, seconds")
+    fl.add_argument("--ckpt", type=float, default=1800.0,
+                    help="checkpoint interval in work-seconds (progress "
+                         "rolls back to the last multiple on a fault)")
+    fl.add_argument("--restore", default="auto",
+                    help="restart cost per revocation: seconds, or 'auto' "
+                         "to derive from model size and slice shape")
+    fl.add_argument("--num-jobs", type=int, default=200,
+                    help="Philly-like trace length")
+    fl.add_argument("--seed", type=int, default=0,
+                    help="governs trace AND fault streams (seed-split rule)")
+    fl.add_argument("--dims", default="8x8", help="TPU pod dims")
+    fl.add_argument("--pods", type=int, default=1)
+    fl.add_argument("--max-time", type=float,
+                    help="horizon cutoff (also bounds schedule generation)")
+    fl.add_argument("--out", help="also write the JSON document here")
+    fl.add_argument("--events", metavar="DIR",
+                    help="capture one <policy>.events.jsonl per cell into "
+                         "DIR (each with its own schema header), ready for "
+                         "`report` / `compare`")
+    fl.set_defaults(fn=cmd_faults)
 
     rep = sub.add_parser(
         "report",

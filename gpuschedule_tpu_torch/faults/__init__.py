@@ -15,6 +15,8 @@ A new axis of the simulation: hardware breaks.  The package splits into
 - :mod:`gpuschedule_tpu_torch.faults.recovery` — the victim recovery model
   (checkpoint-interval rollback + restore cost) and the ``FaultPlan``
   bundle the engine consumes;
+- :mod:`gpuschedule_tpu_torch.faults.sweep` — the MTBF x policy robustness
+  grid behind ``tools.fault_sweep`` and the CLI ``faults`` demo.
 
 The engine side lives in :mod:`gpuschedule_tpu_torch.sim.engine` (``_FAULT`` /
 ``_REPAIR`` event kinds); the cluster side is the health mask each

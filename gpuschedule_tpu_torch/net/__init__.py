@@ -20,7 +20,9 @@ decisions at production scale):
   ``("link", pod)`` fault degradation, residual-bandwidth scoring
   for the ``contention`` placement scheme, and — with redundant sibling
   uplinks (``uplinks_per_pod > 1``) — proportional-multipath
-  adaptive routing around degraded links (``reroute`` events).
+  adaptive routing around degraded links (``reroute`` events);
+- :mod:`gpuschedule_tpu_torch.net.sweep` — the contention-vs-offered-load
+  grid behind ``tools.net_sweep``.
 
 Engine integration lives in :mod:`gpuschedule_tpu_torch.sim.engine`
 (``Simulator(net=...)``, the ``net`` / ``netlink`` event kinds); the

@@ -18,9 +18,14 @@
 - :mod:`gpuschedule_tpu_torch.obs.selfprof` — wall-clock phase profiler of
   the replay loop (``run --self-profile``);
 - :mod:`gpuschedule_tpu_torch.obs.history` — append-only sqlite store of
-  run and compare summaries (``--history``, ``history list|trend``).
+  run and compare summaries (``--history``, ``history list|trend``);
+- :mod:`gpuschedule_tpu_torch.obs.fleet` — cross-process observability:
+  trace-context envelopes through the worker pool, per-task child
+  tracer, registry and profiler, their deterministic federation, and one
+  merged Perfetto document with a track per worker (``whatif
+  --trace-out``, the sweep tools' ``--trace``).
 
-The JAX package's ``watch`` and ``fleet`` modules are not ported yet.
+The JAX package's ``watch`` module is not ported yet.
 Like the sim core, this package runs no device code.
 """
 
@@ -61,6 +66,13 @@ from gpuschedule_tpu_torch.obs.selfprof import (
     PhaseProfiler,
     load_profile,
     merge_profiles,
+)
+from gpuschedule_tpu_torch.obs.fleet import (
+    FleetCollector,
+    TaskContext,
+    WorkerTelemetry,
+    task_profiler,
+    task_span,
 )
 from gpuschedule_tpu_torch.obs.history import (
     HistoryRow,
@@ -112,6 +124,11 @@ __all__ = [
     "PhaseProfiler",
     "load_profile",
     "merge_profiles",
+    "FleetCollector",
+    "TaskContext",
+    "WorkerTelemetry",
+    "task_profiler",
+    "task_span",
     "HistoryRow",
     "HistoryStore",
     "render_trend",

@@ -7,8 +7,9 @@ simulator's traced loop stamps), ``Tracer`` (``span``, ``record``,
 ``spans``, ``summary``, the wall-clock Chrome export that ``run --spans``
 writes), :data:`NULL_SPAN` and the ``GSTPU_TRACE`` switch, so a span the
 port records has the name and attribute keys of the JAX package's span
-for the same call.  The JAX tracer's shared ``origin`` has no caller in
-the port and is left out.
+for the same call, and the shared ``origin`` that the fleet layer
+(:mod:`gpuschedule_tpu_torch.obs.fleet`) gives every per-task tracer of a
+worker process.
 
 A span is a context-managed interval with a name, a category and
 attributes, on the wall clock and, when the caller passes ``sim_now``, on
@@ -114,11 +115,16 @@ class Tracer:
     """Collects spans; a process-wide singleton lives behind :func:`get_tracer`.
 
     ``enabled`` is the single switch every instrumented call site keys on;
-    ``wall_start`` 0 is the tracer's creation (or last ``reset``)."""
+    ``wall_start`` 0 is the tracer's creation (or last ``reset``), or
+    ``origin`` when given: several tracers of one process then share a
+    wall anchor (the fleet layer gives each per-task tracer its worker's
+    first-task origin, so the worker's tasks lay out in sequence on its
+    track)."""
 
-    def __init__(self, *, enabled: bool = False):
+    def __init__(self, *, enabled: bool = False,
+                 origin: Optional[float] = None):
         self.enabled = bool(enabled)
-        self._origin = time.perf_counter()
+        self._origin = time.perf_counter() if origin is None else origin
         self._spans: List[Span] = []
         self._lock = threading.Lock()
         self._tl = threading.local()

@@ -311,6 +311,12 @@ def _mesh_trainer(model_name, k, batch_size, seq_len, *, sp=1, tp=1, pp=1,
     return trainer, state, batch
 
 
+# Whether this process has measured a step: torch's thread pools (and on
+# the card a CUDA context) then live in it, which a forked child cannot
+# use, so a worker pool started here spawns (sim/pool.py:default_context).
+STEPS_MEASURED = False
+
+
 def measure_step_time(
     model_name: str,
     *,
@@ -334,6 +340,8 @@ def measure_step_time(
     each on ``cuda`` unless ``device="cpu"``, after ``warmup`` steps; with
     ``pp`` >= 2 the pipeline's step on a (pp, dp) mesh.  Every rank calls
     it; a rank outside the mesh gets None."""
+    global STEPS_MEASURED
+    STEPS_MEASURED = True
     k = world_size() if devices is None else devices
     with get_tracer().span("profiler.measure_step_time", cat="profiler", model=model_name,
                            k=k, sp=sp, tp=tp, pp=pp) as sp_:

@@ -59,6 +59,10 @@ def test_entry_points_default_to_the_card(no_cuda, tmp_path):
         main(["run", "--policy", "optimus", "--online", "--curves", str(tmp_path / "c.json"),
               "--synthetic", "5"])
     assert not (tmp_path / "c.json").exists()
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        main(["whatif", "--policy", "optimus", "--online", "--curves", str(tmp_path / "c.json"),
+              "--synthetic", "5", "--at", "0", "--swap-policy", "fifo"])
+    assert not (tmp_path / "c.json").exists()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Simulator(SimpleCluster(8), OptimusPolicy(online=True),
                   generate_poisson_trace(3, models=("transformer-tiny",))).run()
@@ -97,8 +101,78 @@ def test_scans_cover_the_bench_and_the_card_table():
         "placement/schemes", "net/__init__", "net/fabric", "net/maxmin", "net/model",
         "faults/__init__", "faults/schedule", "faults/hazard", "faults/recovery", "analysis",
         "sim/ledger", "sim/snapshot", "worldspec", "obs/selfprof", "obs/analyze",
-        "obs/history", "obs/compare", "obs/report", "obs/__init__")}
+        "obs/history", "obs/compare", "obs/report", "obs/__init__", *COPIES)}
     assert sim <= names
+
+
+# Modules that are the JAX package's with the package's name replaced:
+# port module -> (the JAX package's file, top-level statements allowed to
+# differ and why).  Docstrings aside, every other statement is the same.
+COPIES = {
+    "sim/pool": ("gpuschedule_tpu/sim/pool.py", {
+        # a pool of a process with a CUDA context spawns its workers
+        "import sys", "default_context", "WorkerPool"}),
+    "obs/fleet": ("gpuschedule_tpu/obs/fleet.py", set()),
+    "faults/sweep": ("gpuschedule_tpu/faults/sweep.py", set()),
+    "net/sweep": ("gpuschedule_tpu/net/sweep.py", set()),
+    "sim/whatif": ("gpuschedule_tpu/sim/whatif.py", set()),
+    # the tools run as ``python -m``: no sys.path entry, so no ``os``; a
+    # ``main`` differs in its flags' help text alone (history references
+    # trimmed; whatif_bench's --speedup-floor names the JAX package's target)
+    "tools/report_smoke": ("tools/report_smoke.py", {"import os"}),
+    "tools/fault_sweep": ("tools/fault_sweep.py", {"import os", "main"}),
+    "tools/net_sweep": ("tools/net_sweep.py", {"import os", "main"}),
+    "tools/fault_chaos": ("tools/fault_chaos.py", {"import os"}),
+    "tools/attrib_smoke": ("tools/attrib_smoke.py", {"import os"}),
+    "tools/engine_bench": ("tools/engine_bench.py", {"import os", "main"}),
+    "tools/whatif_bench": ("tools/whatif_bench.py", {"main"}),
+}
+
+
+def _statements(path: Path, rename: bool) -> dict:
+    """A module's top-level statements by name (a definition's, an
+    assignment's targets, an import's text), each as its AST dump with
+    every docstring dropped; ``rename`` reads ``gpuschedule_tpu`` imports
+    as the port's and drops ``sys.path`` edits."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef)):
+            first = node.body[0] if node.body else None
+            if (isinstance(first, ast.Expr) and isinstance(first.value, ast.Constant)
+                    and isinstance(first.value.value, str)):
+                node.body = node.body[1:] or [ast.Pass()]
+        if rename and isinstance(node, ast.ImportFrom) and node.module and (
+                node.module.split(".")[0] == "gpuschedule_tpu"):
+            node.module = "gpuschedule_tpu_torch" + node.module[len("gpuschedule_tpu"):]
+    found = {}
+    for stmt in tree.body:
+        if isinstance(stmt, (ast.FunctionDef, ast.ClassDef)):
+            key = stmt.name
+        elif isinstance(stmt, ast.Import):
+            key = "import " + ", ".join(a.name for a in stmt.names)
+        elif isinstance(stmt, ast.ImportFrom):
+            key = f"from {stmt.module} import " + ", ".join(a.name for a in stmt.names)
+        elif isinstance(stmt, (ast.Assign, ast.AnnAssign)):
+            targets = stmt.targets if isinstance(stmt, ast.Assign) else [stmt.target]
+            key = ", ".join(ast.unparse(t) for t in targets)
+        else:
+            key = ast.unparse(stmt)
+            if rename and key.startswith("sys.path.insert("):
+                continue
+        found[key] = ast.dump(stmt)
+    return found
+
+
+@pytest.mark.parametrize("module", sorted(COPIES))
+def test_copy_is_the_jax_module_statement_for_statement(module):
+    """The port's copy against the JAX package's module: the same
+    top-level statements, each the same AST, docstrings aside, but for
+    the differences COPIES names."""
+    jax_file, allowed = COPIES[module]
+    port = _statements(ROOT / "gpuschedule_tpu_torch" / f"{module}.py", rename=False)
+    ref = _statements(ROOT / jax_file, rename=True)
+    differ = {k for k in port.keys() | ref.keys() if port.get(k) != ref.get(k)}
+    assert differ == allowed
 
 
 def test_unported_options_raise(tmp_path):
